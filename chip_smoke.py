@@ -6,23 +6,37 @@
 Runs from the root of a checkout, with JAX and the JAX package blocked
 from import, and exits non-zero on any failure:
 
- 1. builds the CUDA kernels of ``src/repro_torch/core/kernels/csrc`` (one
-    nvcc per source, in parallel) into that package's ``build/``;
- 2. holds each kernel against its plain PyTorch version on the card at
-    the service's shapes plus ragged ones (rtol = atol = 2e-4), times
-    both (median of per-launch CUDA-event times after warm-up) and reads
-    the kernel's own device time from the PyTorch profiler;
+ 1. builds every CUDA kernel of the port (``csrc/*.cu`` under
+    ``src/repro_torch``: Parzen, Matérn, flash attention; one nvcc per
+    source, in parallel) into the ``build/`` beside each ``csrc/``;
+ 2. holds each acquisition kernel against its plain PyTorch version on
+    the card at the service's shapes plus ragged ones (rtol = atol =
+    2e-4), times both (median of per-launch CUDA-event times after
+    warm-up) and reads the kernel's own device time from the profiler;
  3. serves a TPE study over HTTP (2 API workers, event-loop frontend,
     durable storage with group fsync): 5,000 completed trials on the
     5-parameter space of ``benchmarks/bench_ask_latency.py``, then timed
     single asks and tells and ``ask_batch(16)`` calls, then a profiled
     window of asks for the device's busy share;
  4. serves a GP study to its 512-observation cap, then a few asks;
- 5. runs the speculative pipeline (depth 64) under 64 client threads.
+ 5. runs the speculative pipeline (depth 64) under 64 client threads;
+ 6. holds the flash-attention kernel against its plain version on the
+    card (deepseek-7b's and qwen3-32b's shapes, a 4096 window at S 8192,
+    a 32 window, S = 96 and 100, hd 16; 2e-4 in fp32, 2e-2 in bf16) and
+    times it, the plain version and ``F.scaled_dot_product_attention``
+    (the yardstick only; the port never calls it) at deepseek-7b's shape;
+ 7. deepseek-7b at full width, 2 layers, fp32: prefill logits with
+    ``attn_impl="flash"`` against ``"ref"`` (2e-3), and token-by-token
+    decode logits against the prefill's at the end of a 64-token prompt;
+ 8. serves deepseek-7b at full size (30 layers, bf16 compute, random
+    weights from a seeded generator on the card): ``make_prefill_step``
+    on 4 x 2048 tokens (30 flash launches per call) and
+    ``ServeEngine.generate`` on 4 x 64-token prompts, 32 new tokens.
 
-The launch counters are set to 0 just before each of phases 3-5 and read
-just after it.  The last three lines are the kernels' JSON record, the
-card's name and power limit from nvidia-smi, and the result line.
+The launch counters are set to 0 just before each of phases 3-5 and 8
+and read just after it.  The last three lines are the kernels' JSON
+record, the card's name and power limit from nvidia-smi, and the result
+line.
 """
 from __future__ import annotations
 
@@ -47,6 +61,9 @@ ROOT = Path(__file__).resolve().parent
 TOL = dict(rtol=2e-4, atol=2e-4)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 PROPS = {"lr": {"type": "loguniform", "low": 1e-5, "high": 1e-1},
          "wd": {"type": "loguniform", "low": 1e-6, "high": 1e-2},
          "width": {"type": "int", "low": 32, "high": 1024},
@@ -117,6 +134,13 @@ def kernel_device_us(fn, kernel: str, reps: int = 50) -> str:
         return "not measured (no device events)"
     n, us = hits[0]
     return f"{us / n:.2f} us per launch (profiler, {n} launches)"
+
+
+def lap(what: str, t0: float) -> float:
+    """Log the wall time since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    log(f"{what}: {now - t0:.2f} s")
+    return now
 
 
 def pct(xs: list[float], q: float) -> float:
@@ -219,9 +243,10 @@ def check_kernels(K) -> dict[str, dict]:
     return rows
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -449,6 +474,235 @@ def speculative_phase(core, K, storage, tokens, space, token, key):
             s.close()
 
 
+# --------------------------------------------------------------------- #
+# phase 6: flash attention against its plain version
+# --------------------------------------------------------------------- #
+# (label, B, Hq, Hkv, S, hd, dtype, causal, window); fp32 runs the scalar
+# kernel, bf16 the tensor-core one
+BF16, FP32 = torch.bfloat16, torch.float32
+FLASH_CASES = [
+    ("deepseek-7b", 4, 32, 32, 2048, 128, BF16, True, None),
+    ("qwen3-32b GQA", 2, 64, 8, 1024, 128, BF16, True, None),
+    ("qwen3-32b GQA", 2, 64, 8, 1024, 128, FP32, True, None),
+    ("window 4096", 1, 32, 8, 8192, 128, BF16, True, 4096),
+    ("window 32", 2, 8, 8, 256, 64, FP32, True, 32),
+    ("window 32", 2, 8, 8, 256, 64, BF16, True, 32),
+    ("S 96", 2, 4, 4, 96, 64, FP32, True, None),
+    ("S 96", 2, 4, 4, 96, 64, BF16, True, None),
+    ("S 100", 2, 4, 2, 100, 32, BF16, True, None),
+    ("S 100 full", 2, 4, 2, 100, 32, FP32, False, None),
+    ("S 100 full", 2, 4, 2, 100, 32, BF16, False, None),
+    ("hd 16", 2, 4, 2, 128, 16, FP32, True, None),
+    ("hd 16", 2, 4, 2, 100, 16, BF16, True, None),
+    ("unaligned view", 2, 4, 2, 100, 32, BF16, True, None),
+]
+
+
+def flash_inputs(b, hq, hkv, s, hd, dtype, seed, unaligned=False):
+    """q (b, s, hq, hd), k and v (b, s, hkv, hd); ``unaligned``: views
+    whose rows start off 16-byte boundaries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pad = 1 if unaligned else 0
+    return [torch.randn((b, s, h, hd + pad), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)[..., pad:]
+            for h in (hq, hkv, hkv)]
+
+
+def visible_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(q, k) pairs the mask lets through, S = T, positions from 0."""
+    q = np.arange(s)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(
+        0, q - window + 1)
+    hi = q + 1 if causal else np.full(s, s)
+    return int((hi - lo).sum())
+
+
+def check_flash(FA) -> dict:
+    err = 0.0
+    for i, (label, b, hq, hkv, s, hd, dt, causal, window) in enumerate(
+            FLASH_CASES):
+        q, k, v = flash_inputs(b, hq, hkv, s, hd, dt, 500 + i,
+                               unaligned=label == "unaligned view")
+        out = FA.flash_attention(q, k, v, causal=causal, window=window)
+        ref = FA.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(out.dtype == dt and out.shape == q.shape, f"{label} shape")
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **FLASH_TOL[dt])
+        case_err = float((out.float() - ref.float()).abs().max())
+        err = max(err, case_err)
+        log(f"flash {label}: B {b} heads {hq}/{hkv} S {s} hd {hd} {dt} "
+            f"causal {causal} window {window}: agrees, max |err| "
+            f"{case_err:.3e}")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+    label, b, hq, hkv, s, hd, dt, causal, window = FLASH_CASES[0]
+    q, k, v = flash_inputs(b, hq, hkv, s, hd, dt, 500)
+    ms = event_times_ms(lambda: FA.flash_attention(q, k, v), 2, 10)
+    plain_ms = event_times_ms(lambda: FA.attention_ref(q, k, v), 2, 10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_times_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                2, 10)
+    device = kernel_device_us(lambda: FA.flash_attention(q, k, v),
+                              "flash_fwd", reps=10)
+    pairs = b * hq * visible_pairs(s, causal, window)
+    ops = 4 * hd * pairs              # q.k and p.v, a multiply-add each
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:114",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound(nbytes, ops, BF16_OPS_PER_S), library_ms=library_ms)
+    log(f"flash_attention: {len(FLASH_CASES)} cases agree (max |err| "
+        f"{err:.3e}); deepseek-7b shape: wrapper {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {ops:.4e} ops, "
+        f"{nbytes} bytes); kernel device time {device}; achieved "
+        f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 7: model parity at full width
+# --------------------------------------------------------------------- #
+def model_parity(M, T, E) -> None:
+    cfg = M.get_config("deepseek-7b").replace(n_layers=2,
+                                               dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                         device="cuda")
+    flash = E.make_prefill_step(cfg.replace(attn_impl="flash"))(
+        params, {"tokens": toks})
+    ref = E.make_prefill_step(cfg.replace(attn_impl="ref"))(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    check(flash.shape == (*toks.shape, cfg.vocab_size), "prefill shape")
+    check(bool(torch.isfinite(flash).all()), "prefill logits not finite")
+    torch.testing.assert_close(flash, ref, rtol=2e-3, atol=2e-3)
+    prefill_err = float((flash - ref).abs().max())
+    del flash, ref
+
+    prompt = toks[:, :64]
+    prefill = E.make_prefill_step(cfg.replace(attn_impl="flash"))(
+        params, {"tokens": prompt})
+    decode = E.make_decode_step(cfg)
+    cache = T.init_cache(cfg, 2, 64, "cuda")
+    for t in range(64):
+        logits, cache = decode(params, cache, prompt[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logits[:, 0], prefill[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    decode_err = float((logits[:, 0] - prefill[:, -1]).abs().max())
+    log(f"model parity: deepseek-7b, d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, fp32, {toks.shape[0]} x {toks.shape[1]} "
+        "tokens: "
+        f"flash vs ref prefill logits max |err| {prefill_err:.3e}; decode "
+        f"vs prefill at position 63 of a 64-token prompt max |err| "
+        f"{decode_err:.3e} (tolerance 2e-3)")
+    del params, cache, logits, prefill
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the served model, full size
+# --------------------------------------------------------------------- #
+def serve_phase(M, T, E, FA, K) -> int:
+    cfg = M.get_config("deepseek-7b").replace(attn_impl="flash")
+    check(cfg.n_layers == 30 and cfg.d_model == 4096, "not full size")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    engine = E.ServeEngine(cfg, params, max_len=96, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in M.registry.leaves(engine.params))
+    log(f"serve: deepseek-7b, {cfg.n_layers} layers, {n_params} "
+        f"parameters: init (fp32) + cast to {cfg.dtype} in "
+        f"{time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    torch.cuda.reset_peak_memory_stats()
+    prefill = E.make_prefill_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     generator=gen, device="cuda")}
+    FA.flash_attention.launches = 0
+    K.parzen_log_density.launches = 0
+    K.matern52_cross.launches = 0
+
+    def one_prefill():
+        before = FA.flash_attention.launches
+        out = prefill(engine.params, batch)
+        check(FA.flash_attention.launches - before == cfg.n_layers,
+              f"{FA.flash_attention.launches - before} flash launches "
+              f"in one prefill of {cfg.n_layers} layers")
+        return out
+
+    logits = one_prefill()                        # warm-up
+    torch.cuda.synchronize()
+    check(logits.shape == (*batch["tokens"].shape, cfg.vocab_size),
+          "logits shape")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = one_prefill()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall, device = profiled(one_prefill)
+    prefill_s = float(np.median(times))
+    b, s = batch["tokens"].shape
+    log(f"serve prefill: {b} x {s} tokens, {prefill_s * 1e3:.2f} ms "
+        f"median of 3 ({[round(t * 1e3, 2) for t in times]}), "
+        f"{b * s / prefill_s:.1f} prefill tokens/s")
+    log(breakdown("serve prefill (profiled)", wall, device))
+
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, 32)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (4, 32) and out.dtype == np.int32, "generate shape")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token range")
+    steps = 64 + 32 - 1
+    log(f"serve generate: 4 x 64-token prompts, 32 new tokens: "
+        f"{steps} decode steps in {gen_s:.3f} s, "
+        f"{4 * steps / gen_s:.1f} decode tokens/s "
+        f"({1e3 * gen_s / steps:.2f} ms per step of 4 tokens), "
+        f"{4 * 32 / gen_s:.1f} new tokens/s; first row {out[0][:8].tolist()}")
+    wall, device = profiled(lambda: engine.generate(prompts[:, :8], 8))
+    log(breakdown("serve decode, 15 steps (profiled)", wall, device))
+    launches = FA.flash_attention.launches
+    check(launches == 5 * cfg.n_layers, f"{launches} flash launches")
+    check(K.parzen_log_density.launches == 0
+          and K.matern52_cross.launches == 0, "acquisition kernels ran")
+    log(f"serve: {launches} flash launches over 5 prefills; peak memory "
+        f"while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (max_memory_allocated)")
+    del engine, logits, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def breakdown(label: str, wall: float, device: dict) -> str:
+    if not device:
+        return f"{label}: device time not measured (no device events)"
+    busy_us = sum(us for _, us in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    return (f"{label}: wall {wall * 1e3:.1f} ms, device busy "
+            f"{busy_us / 1e3:.3f} ms (share {busy_us / 1e6 / wall:.4f}); "
+            "top device events: "
+            + "; ".join(f"{k[:48]} x{c} {us / 1e3:.2f}ms"
+                        for k, (c, us) in top))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -457,6 +711,10 @@ def main() -> int:
     import repro_torch.core as core
     from repro_torch.core import kernels as K
     from repro_torch.core.samplers import tpe as tpe_mod
+    from repro_torch import models as M
+    from repro_torch import serve as E
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -471,6 +729,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = K.build_all()
     log(f"build: {built} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
 
     rows = check_kernels(K)
 
@@ -490,6 +749,14 @@ def main() -> int:
             storage.close()
     rows["parzen_log_density"]["launches"] = parzen_launches
     rows["matern52_cross"]["launches"] = matern_launches
+
+    t0 = lap("phases 2-5", t0)
+    rows["flash_attention"] = check_flash(FA)
+    t0 = lap("phase 6", t0)
+    model_parity(M, T, E)
+    t0 = lap("phase 7", t0)
+    rows["flash_attention"]["launches"] = serve_phase(M, T, E, FA, K)
+    lap("phase 8", t0)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,0 +1,24 @@
+"""deepseek-7b [dense] — 30L d_model=4096 32H (GQA kv=32, i.e. MHA)
+d_ff=11008 vocab=102400, llama-arch.  [arXiv:2401.02954]"""
+import torch
+
+from ..models.config import ModelConfig
+from ..models.registry import register
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-7b", family="dense",
+        n_layers=30, d_model=4096, n_heads=32, n_kv_heads=32,
+        d_ff=11008, vocab_size=102400, head_dim=128,
+        rope_theta=10_000.0)
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-7b-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        d_ff=128, vocab_size=256, head_dim=16, dtype=torch.float32)
+
+
+register("deepseek-7b", full, smoke)

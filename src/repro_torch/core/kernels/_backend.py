@@ -5,11 +5,14 @@ where there is none raises instead of carrying on on the CPU.  There is
 no environment knob that sends a CUDA tensor to a kernel's plain version:
 a kernel wrapper takes the plain version only for a tensor on the CPU.
 
-Each ``csrc/<name>.cu`` builds with ``nvcc`` into its own shared library
-with a plain C interface (``build/lib<name>.so`` next to ``csrc/``),
-loaded with ``ctypes``.  A library is built at its first use, or by
-``build_all()`` (one ``nvcc`` per source, all started together), and is
-rebuilt when its source is newer than it.
+Every ``csrc/<name>.cu`` of the port (``core/kernels/csrc/`` and each
+``kernels/<op>/csrc/``) builds with ``nvcc`` into its own shared library
+with a plain C interface, ``build/lib<name>.so`` next to its ``csrc/``,
+loaded with ``ctypes``.  Each C entry point is named after its file and
+returns a ``cudaError_t``; its wrapper names the argument types.  A
+library is built at its first use, or by ``build_all()`` (one ``nvcc``
+per source, all started together), and is rebuilt when its source is
+newer than it.
 """
 from __future__ import annotations
 
@@ -23,8 +26,7 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD = Path(__file__).resolve().parent / "build"
+PACKAGE = Path(__file__).resolve().parents[2]     # src/repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,27 +55,46 @@ def _nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build the kernels in " + str(CSRC))
+                       "build the kernels of " + str(PACKAGE))
+
+
+def sources() -> dict[str, Path]:
+    """Every kernel source of the port, by entry-point name."""
+    found: dict[str, Path] = {}
+    for src in sorted(PACKAGE.rglob("csrc/*.cu")):
+        if src.stem in found:
+            raise RuntimeError(f"two kernel sources named {src.stem}: "
+                               f"{found[src.stem]} and {src}")
+        found[src.stem] = src
+    return found
+
+
+def _source(name: str) -> Path:
+    src = sources().get(name)
+    if src is None:
+        raise RuntimeError(f"no kernel source csrc/{name}.cu in {PACKAGE}")
+    return src
 
 
 def _lib_path(name: str) -> Path:
-    return BUILD / f"lib{name}.so"
+    return _source(name).parent.parent / "build" / f"lib{name}.so"
 
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or src.stat().st_mtime > lib.stat().st_mtime
+    return (not lib.exists()
+            or _source(name).stat().st_mtime > lib.stat().st_mtime)
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, str]:
     """Start one nvcc into a private temp file (renamed on success, so a
     concurrent loader never maps a half-written library)."""
-    BUILD.mkdir(parents=True, exist_ok=True)
+    build = _lib_path(name).parent
+    build.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so",
-                               dir=BUILD)
+                               dir=build)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
@@ -91,7 +112,7 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: str) -> None:
 def build_all() -> list[str]:
     """Build every stale kernel library, one nvcc per source, in
     parallel.  Returns the names that were built."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    names = sorted(sources())
     with _lock:
         stale = [n for n in names if _stale(n)]
         started = [(n, *_start_build(n)) for n in stale]
@@ -100,39 +121,48 @@ def build_all() -> list[str]:
     return stale
 
 
-# every entry point: (in0, in1, out, rows0, rows1, k, stream) -> cudaError_t
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# the two acquisition kernels: (in0, in1, out, rows0, rows1, k, stream)
+MATRIX_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+                   + (ctypes.c_void_p,))
 
 
-def load(name: str):
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built if stale."""
+def load(name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built if stale.
+    ``argtypes``: ``ctypes.c_void_p`` for each pointer and the stream
+    (a plain int would cut a pointer to 32 bits), ``ctypes.c_int`` or
+    ``ctypes.c_int64`` for each integer, in the entry point's order."""
     fn = _fns.get(name)
-    if fn is not None:
-        return fn
-    with _lock:
-        fn = _fns.get(name)
-        if fn is None:
-            if _stale(name):
-                _finish_build(name, *_start_build(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
+    if fn is None:
+        with _lock:
+            fn = _fns.get(name)
+            if fn is None:
+                if _stale(name):
+                    _finish_build(name, *_start_build(name))
+                fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
     return fn
+
+
+def call(name: str, argtypes: tuple, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` with ``args`` and then the current stream of
+    ``device`` (the last argument of every entry point); raises if the
+    launch was refused."""
+    fn = load(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def launch(name: str, in0: torch.Tensor, in1: torch.Tensor,
            out: torch.Tensor) -> None:
-    """Launch kernel ``name`` on the current stream of ``out``'s device;
-    raises if the launch was refused."""
-    fn = load(name)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(in0.data_ptr(), in1.data_ptr(), out.data_ptr(),
-                 in0.shape[0], in1.shape[0], in0.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    """Launch acquisition kernel ``name`` (``MATRIX_ARGTYPES``) on the
+    current stream of ``out``'s device."""
+    call(name, MATRIX_ARGTYPES, out.device, in0.data_ptr(), in1.data_ptr(),
+         out.data_ptr(), in0.shape[0], in1.shape[0], in0.shape[1])
 
 
 def check_cuda_operand(t: torch.Tensor, name: str, ndim: int) -> None:

@@ -1,0 +1,107 @@
+"""Flash attention in the model layout: the CUDA kernel for CUDA tensors,
+the plain version (``ref.attention_ref``) for CPU tensors.
+
+``flash_attention`` keeps the model layout (B, S, H, hd) at its public
+function, like the reference's ``ops.flash_attention``; the kernel reads
+that layout through its strides, so nothing is transposed or copied on
+the card.  The reference's block-size choice (``_largest_divisor_block``)
+has no counterpart: the kernel masks ragged tiles itself and any S and T
+work.  bf16 operands whose rows do not start on 16-byte boundaries (an
+odd view) are copied once, since the bf16 path loads 16-byte vectors.
+The kernel is forward-only, as the TPU kernel is: with autograd
+recording and an input that requires grad, the op raises instead of
+returning a wrong gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.kernels._backend import call, count_launch
+from . import ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+_TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
+# (q, k, v, o, 4 x (b, s, h) strides, B, Hq, Hkv, S, T, hd, causal,
+#  window, is_bf16, stream) -> cudaError_t
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 12
+             + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None
+                  ) -> torch.Tensor:
+    """The plain version in the model layout: q (B, S, Hq, hd), k and v
+    (B, T, Hkv, hd) -> (B, S, Hq, hd)."""
+    return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal,
+                             window=window).transpose(1, 2)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, S, Hq, hd) and k, v (B, T, Hkv, "
+                         f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, _, Hq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or Hq % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} need "
+                         "one batch and head dim, and Hkv dividing Hq")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported by the flash "
+                         f"kernel; it takes {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention is forward-only (the kernel "
+                           "has no backward); run it under torch.no_grad() "
+                           "or use attn_impl='ref' for gradients")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, s, h) row of ``t`` starts on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:3])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
+    """q: (B, S, Hq, hd); k,v: (B, T, Hkv, hd) -> (B, S, Hq, hd) in q's
+    dtype.  fp32 or bf16, hd in ``HEAD_DIMS``; causal masking is top-left
+    aligned (q and k positions both start at 0)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} on {q.device}, got "
+                            f"{t.dtype} on {t.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a dense head dim, got strides "
+                             f"{t.stride()}")
+    if q.dtype not in _TYPE_FLAG:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.dtype == torch.bfloat16:                 # 16-byte tile loads
+        q, k, v = (t if _rows_aligned(t) else
+                   torch.empty_like(t, memory_format=torch.contiguous_format
+                                    ).copy_(t) for t in (q, k, v))
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    call("flash_attention", _ARGTYPES, q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+         *out.stride()[:3], B, Hq, Hkv, S, T, hd, int(causal),
+         window or 0, _TYPE_FLAG[q.dtype])
+    count_launch(flash_attention)
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,130 @@
+"""Shared neural building blocks (plain functions over dicts of tensors).
+
+Parameters are nested dicts of tensors with the reference's keys and
+layouts.  The reference's ``Leaf``/``split_tree`` carry logical sharding
+axes; the port does not shard yet, so it has no counterpart.  Random
+parameters come from a ``torch.Generator``: the same seed gives other
+numbers than ``jax.random``, so parity tests carry the reference's
+parameters across (``repro_torch.models.convert``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------- #
+# parameter init
+# --------------------------------------------------------------------- #
+class ParamInit:
+    """Makes parameters on one device from one generator.  On the
+    ``meta`` device it makes shapes only (no allocation, no draws): the
+    port's abstract init, for counting a 67B-parameter model."""
+
+    def __init__(self, seed: int, device: torch.device):
+        self.device = device
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
+
+    def __call__(self, shape: tuple[int, ...], dtype: Any,
+                 scale: float | None = None, init: str = "normal"
+                 ) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=self.device)
+        if scale is None:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                        device=self.device)
+        return w.mul_(scale).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------- #
+def init_rmsnorm(mk: ParamInit, d: int, dtype: Any,
+                 stacked: int | None = None) -> torch.Tensor:
+    shape = (d,) if stacked is None else (stacked, d)
+    return mk(shape, dtype, init="ones")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+# --------------------------------------------------------------------- #
+# MLP (SwiGLU / plain)
+# --------------------------------------------------------------------- #
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's default
+}
+
+
+def init_mlp(mk: ParamInit, d_model: int, d_ff: int, dtype: Any, glu: bool,
+             stacked: int | None = None) -> dict:
+    L = () if stacked is None else (stacked,)
+    p = {"up": mk((*L, d_model, d_ff), dtype),
+         "down": mk((*L, d_ff, d_model), dtype)}
+    if glu:
+        p["gate"] = mk((*L, d_model, d_ff), dtype)
+    return p
+
+
+def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Products in the activation dtype, as the reference's
+    ``preferred_element_type=dt`` einsums."""
+    fn = ACTIVATIONS[act]
+    dt = x.dtype
+    h = x @ p["up"].to(dt)
+    if "gate" in p:
+        h = h * fn(x @ p["gate"].to(dt))
+    else:
+        h = fn(h)
+    return h @ p["down"].to(dt)
+
+
+# --------------------------------------------------------------------- #
+# rotary position embeddings
+# --------------------------------------------------------------------- #
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device | None = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) int."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                # (hd/2,)
+    angles = positions[:, None, None].float() * freqs            # (S,1,hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1f, x2f = x[..., : hd // 2].float(), x[..., hd // 2:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# embeddings / LM head
+# --------------------------------------------------------------------- #
+def init_embedding(mk: ParamInit, vocab: int, d_model: int, dtype: Any
+                   ) -> torch.Tensor:
+    return mk((vocab, d_model), dtype, scale=0.02)
+
+
+def init_lm_head(mk: ParamInit, d_model: int, vocab: int, dtype: Any
+                 ) -> torch.Tensor:
+    return mk((d_model, vocab), dtype)

@@ -1,0 +1,287 @@
+"""The port's dense models and serving engine against the JAX reference.
+
+The reference's parameters (``repro.models.transformer.init_params``)
+are carried across with ``params_from_jax``, so both packages compute
+the same function; logits, caches and greedy tokens are compared in fp32
+on the CPU at rtol = atol = 1e-4 (the same arithmetic in two frameworks,
+with different summation orders).  Each ``attn_impl`` is compared with
+the reference's own (flash in Pallas interpret mode), since the
+reference's ``ref`` path casts probabilities to ``cfg.dtype`` before PV
+where flash keeps them in fp32.
+
+``repro.models`` imports the missing ``repro.dist`` package.  The
+``reference`` fixture stubs it in ``sys.modules`` for this module only
+and afterwards removes the stub and every ``repro.*`` module imported
+under it, so that no other test file in the same worker can import the
+reference models through a leftover stub.
+"""
+import importlib
+import sys
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.launch import serve as port_launch  # noqa: E402
+from repro_torch.models import count_params, get_config  # noqa: E402
+from repro_torch.models import transformer as pt  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.registry import leaves  # noqa: E402
+from repro_torch.serve import (ServeEngine, make_decode_step,  # noqa: E402
+                               make_prefill_step)
+from repro_torch.serve.engine import cast_params  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+CPU = torch.device("cpu")
+# name -> (arch, overrides); all smoke configs, fp32
+MODELS = {"deepseek": ("deepseek-7b", {}),
+          "qwen3": ("qwen3-32b", {}),
+          "deepseek-swa8": ("deepseek-7b", {"sliding_window": 8})}
+UNPORTED = ["mixtral-8x7b", "qwen2-moe-a2.7b", "zamba2-1.2b", "rwkv6-7b",
+            "hubert-xlarge", "pixtral-12b"]
+
+
+def _is_reference(name: str) -> bool:
+    return name == "repro" or name.startswith("repro.")
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's model stack, imported through a stub of the
+    missing ``repro.dist`` (identity ``constrain_batch``, empty
+    ``sharding``); ``sys.modules`` and the parent packages' attributes
+    are restored afterwards."""
+    before = {n for n in sys.modules if _is_reference(n)}
+    dist = types.ModuleType("repro.dist")
+    context = types.ModuleType("repro.dist.context")
+    context.constrain_batch = lambda x, exact=False: x
+    sharding = types.ModuleType("repro.dist.sharding")
+    dist.context, dist.sharding = context, sharding
+    sys.modules.update({"repro.dist": dist, "repro.dist.context": context,
+                        "repro.dist.sharding": sharding})
+    try:
+        yield types.SimpleNamespace(
+            registry=importlib.import_module("repro.models.registry"),
+            transformer=importlib.import_module("repro.models.transformer"),
+            engine=importlib.import_module("repro.serve.engine"),
+            configs=importlib.import_module("repro.configs"))
+    finally:
+        for name in sorted(n for n in sys.modules
+                           if _is_reference(n) and n not in before):
+            mod = sys.modules.pop(name)
+            parent, _, child = name.rpartition(".")
+            if getattr(sys.modules.get(parent), child, None) is mod:
+                delattr(sys.modules[parent], child)
+
+
+@pytest.fixture(scope="module")
+def models(reference):
+    """name -> (reference cfg, port cfg, reference params, port params),
+    built once per name for this module."""
+    built = {}
+
+    def get(name):
+        if name not in built:
+            arch, over = MODELS[name]
+            rcfg = reference.registry.get_config(arch, smoke=True).replace(
+                **over)
+            pcfg = get_config(arch, smoke=True).replace(**over)
+            rparams, _ = reference.transformer.init_params(
+                rcfg, jax.random.key(0))
+            built[name] = (rcfg, pcfg, rparams,
+                           params_from_jax(rparams, CPU))
+        return built[name]
+    return get
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _close(got: torch.Tensor, want, **tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+@pytest.mark.parametrize("impl", ["ref", "flash", "blocked"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_forward_matches_reference(reference, models, name, impl):
+    rcfg, pcfg, rparams, pparams = models(name)
+    toks = _tokens(pcfg, (2, 32), seed=1)
+    want, _ = reference.transformer.forward(
+        rparams, rcfg.replace(attn_impl=impl), {"tokens": jnp.asarray(toks)})
+    got, aux = pt.forward(pparams, pcfg.replace(attn_impl=impl),
+                          {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == (2, 32, pcfg.vocab_size) and float(aux) == 0.0
+    _close(got, want)
+
+
+def test_prefill_step_on_the_cpu_launches_no_kernel(models):
+    _, pcfg, _, pparams = models("qwen3")
+    toks = torch.from_numpy(_tokens(pcfg, (2, 32), seed=2)).long()
+    before = flash_attention.launches
+    flash = make_prefill_step(pcfg.replace(attn_impl="flash"))(
+        pparams, {"tokens": toks})
+    ref = make_prefill_step(pcfg.replace(attn_impl="ref"))(
+        pparams, {"tokens": toks})
+    assert flash_attention.launches == before
+    torch.testing.assert_close(flash, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_decode_matches_reference(reference, models, name, kv_quant):
+    """12 decode steps (past the ring of 8 slots for the SWA model),
+    logits at every step and the whole cache at the end."""
+    rcfg, pcfg, rparams, pparams = models(name)
+    rcfg, pcfg = (c.replace(kv_quant=kv_quant) for c in (rcfg, pcfg))
+    max_len = reference.engine.cache_max_len(rcfg, 16)
+    rcache, _ = reference.transformer.init_cache_arrays(rcfg, 2, max_len)
+    pcache = pt.init_cache_arrays(pcfg, 2, max_len, CPU)
+    rdecode = jax.jit(reference.engine.make_decode_step(rcfg))
+    pdecode = make_decode_step(pcfg)
+    toks = _tokens(pcfg, (2, 12), seed=3)
+    for t in range(12):
+        want, rcache = rdecode(rparams, rcache, jnp.asarray(toks[:, t:t + 1]),
+                               jnp.int32(t))
+        got, pcache = pdecode(pparams, pcache,
+                              torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        _close(got, want)
+    rkv, pkv = rcache["kv"], pcache["kv"]
+    assert set(rkv) == set(pkv)
+    for key in rkv:
+        assert pkv[key].shape == rkv[key].shape
+        if kv_quant and key in ("k", "v"):
+            assert pkv[key].dtype == torch.int8
+            np.testing.assert_array_equal(pkv[key].numpy(),
+                                          np.asarray(rkv[key]))
+        else:
+            _close(pkv[key], rkv[key])
+
+
+def test_decode_logits_match_prefill(models):
+    """The last prompt position's logits from token-by-token decode
+    equal the prefill's."""
+    _, pcfg, _, pparams = models("qwen3")
+    toks = torch.from_numpy(_tokens(pcfg, (2, 16), seed=4)).long()
+    prefill = make_prefill_step(pcfg.replace(attn_impl="flash"))(
+        pparams, {"tokens": toks})
+    decode = make_decode_step(pcfg)
+    cache = pt.init_cache(pcfg, 2, 16, CPU)
+    for t in range(16):
+        logits, cache = decode(pparams, cache, toks[:, t:t + 1], t)
+    torch.testing.assert_close(logits[:, 0], prefill[:, -1], **TOL)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_generate_matches_reference(reference, models, name):
+    rcfg, pcfg, rparams, pparams = models(name)
+    prompts = _tokens(pcfg, (2, 6), seed=5)
+    want = reference.engine.ServeEngine(rcfg, rparams, max_len=16).generate(
+        prompts, 8)
+    got = ServeEngine(pcfg, pparams, max_len=16, device="cpu").generate(
+        prompts, 8)
+    assert got.dtype == np.int32 and got.shape == (2, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_engine_cast_once_gives_the_per_use_cast_numbers(models):
+    """bf16 compute: weights cast once (norms kept in fp32) give the same
+    logits, bit for bit, as casting at every use."""
+    _, pcfg, _, pparams = models("qwen3")
+    cfg = pcfg.replace(dtype=torch.bfloat16)
+    cast = cast_params(pparams, cfg, CPU)
+    assert cast["blocks"]["attn"]["wq"].dtype == torch.bfloat16
+    assert cast["blocks"]["attn"]["q_norm"].dtype == torch.float32
+    assert cast["final_norm"].dtype == torch.float32
+    toks = torch.from_numpy(_tokens(cfg, (2, 8), seed=6)).long()
+    decode = make_decode_step(cfg)
+    caches = [pt.init_cache(cfg, 2, 8, CPU) for _ in range(2)]
+    for t in range(8):
+        a, caches[0] = decode(pparams, caches[0], toks[:, t:t + 1], t)
+        b, caches[1] = decode(cast, caches[1], toks[:, t:t + 1], t)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b",
+                                  "deepseek-67b", "qwen1.5-32b"])
+def test_count_params_matches_reference(reference, arch):
+    """Full-size counts: meta-device init against JAX abstract init."""
+    want = reference.registry.count_params(
+        reference.registry.get_config(arch))
+    cfg = get_config(arch)
+    assert count_params(cfg) == want == cfg.n_params()
+
+
+def test_deepseek_7b_is_the_published_size():
+    cfg = get_config("deepseek-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+                30, 4096, 32, 32, 128, 11008, 102400)
+    assert 6.8e9 < count_params(cfg) < 7.0e9
+    assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
+
+
+def test_params_from_jax_keeps_keys_layouts_and_cache_types(reference,
+                                                            models):
+    rcfg, pcfg, rparams, pparams = models("qwen3")
+    assert pparams["blocks"]["attn"]["wq"].shape == (2, 64, 8, 16)
+    shapes = pt.init_params(pcfg, device="meta")
+    flat = jax.tree_util.tree_flatten_with_path(rparams)[0]
+    assert len(flat) == sum(1 for _ in leaves(pparams))
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        node, meta = pparams, shapes
+        for k in keys:
+            node, meta = node[k], meta[k]
+        assert tuple(node.shape) == leaf.shape == tuple(meta.shape)
+    cache, _ = reference.transformer.init_cache_arrays(
+        rcfg.replace(kv_quant=True), 2, 8)
+    pc = params_from_jax(cache, CPU)
+    assert pc["kv"]["k"].dtype == torch.int8
+    assert pc["kv"]["k_scale"].dtype == torch.bfloat16
+
+
+def test_default_device_raises_without_a_card(models):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, pcfg, _, pparams = models("deepseek")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(pcfg, pparams)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pt.init_params(pcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_launch.main(["--arch", "deepseek-7b", "--smoke"])
+
+
+def test_launcher_serves_on_the_cpu(capsys):
+    assert port_launch.main(["--arch", "deepseek-7b", "--smoke", "--batch",
+                             "2", "--prompt-len", "4", "--new-tokens", "3",
+                             "--device", "cpu", "--kv-quant"]) == 0
+    out = capsys.readouterr().out
+    assert "deepseek-7b-smoke: generated 2x3 tokens" in out
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise_at_init(arch):
+    cfg = get_config(arch, smoke=True)          # the config itself loads
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        count_params(cfg)
+
+
+def test_sequence_parallel_attention_raises(models):
+    _, pcfg, _, pparams = models("deepseek")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.forward(pparams, pcfg.replace(attn_sp=True), {"tokens": toks})
