@@ -7,8 +7,9 @@ Runs from the root of a checkout, with JAX and the JAX package blocked
 from import, and exits non-zero on any failure:
 
  1. builds every CUDA kernel of the port (``csrc/*.cu`` under
-    ``src/repro_torch``: Parzen, Matérn, flash attention; one nvcc per
-    source, in parallel) into the ``build/`` beside each ``csrc/``;
+    ``src/repro_torch``: Parzen, Matérn, flash attention, the SSD scan,
+    the WKV6 scan; one nvcc per source, in parallel) into the ``build/``
+    beside each ``csrc/``;
  2. holds each acquisition kernel against its plain PyTorch version on
     the card at the service's shapes plus ragged ones (rtol = atol =
     2e-4), times both (median of per-launch CUDA-event times after
@@ -31,12 +32,25 @@ from import, and exits non-zero on any failure:
  8. serves deepseek-7b at full size (30 layers, bf16 compute, random
     weights from a seeded generator on the card): ``make_prefill_step``
     on 4 x 2048 tokens (30 flash launches per call) and
-    ``ServeEngine.generate`` on 4 x 64-token prompts, 32 new tokens.
+    ``ServeEngine.generate`` on 4 x 64-token prompts, 32 new tokens;
+ 9. holds the SSD and WKV6 kernels against their plain versions (the
+    sequential recurrences) on the card: zamba2-1.2b's and rwkv6-7b's
+    prefill shapes in bf16 and fp32, chunks of 8 and 16, one chunk, hd
+    16 and 128, the model's strided views, a carried WKV6 state (2e-4 in
+    fp32; 5e-2 for SSD and 6e-2 for WKV6 in bf16), and times both at the
+    model shapes;
+10. zamba2-1.2b (7 layers: one shared-attention group and one tail
+    layer) and rwkv6-7b (2 layers) at full width in fp32: prefill logits
+    with ``ssm_impl="pallas"`` (and flash) against ``"ref"`` (2e-3), and
+    decode logits against the prefill's at the end of a 64-token prompt;
+11. serves zamba2-1.2b (38 layers) and then rwkv6-7b (32 layers) at full
+    size in bf16 as phase 8 serves deepseek-7b: 38 SSD and 6 flash
+    launches per zamba2 prefill, 32 WKV6 launches per rwkv6 prefill.
 
-The launch counters are set to 0 just before each of phases 3-5 and 8
-and read just after it.  The last three lines are the kernels' JSON
-record, the card's name and power limit from nvidia-smi, and the result
-line.
+The launch counters are set to 0 just before each of phases 3-5, 8 and
+11 (each model of it) and read just after it.  The last three lines are
+the kernels' JSON record, the card's name and power limit from
+nvidia-smi, and the result line.
 """
 from __future__ import annotations
 
@@ -64,6 +78,11 @@ FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the reference's own (tests/kernels/test_ssd_wkv.py)
+SCAN_TOL = {("ssd", torch.float32): dict(rtol=2e-4, atol=2e-4),
+            ("ssd", torch.bfloat16): dict(rtol=5e-2, atol=5e-2),
+            ("wkv6", torch.float32): dict(rtol=2e-4, atol=2e-4),
+            ("wkv6", torch.bfloat16): dict(rtol=6e-2, atol=6e-2)}
 PROPS = {"lr": {"type": "loguniform", "low": 1e-5, "high": 1e-1},
          "wd": {"type": "loguniform", "low": 1e-6, "high": 1e-2},
          "width": {"type": "int", "low": 32, "high": 1024},
@@ -610,11 +629,22 @@ def model_parity(M, T, E) -> None:
 
 
 # --------------------------------------------------------------------- #
-# phase 8: the served model, full size
+# phases 8 and 11: a served model, full size
 # --------------------------------------------------------------------- #
-def serve_phase(M, T, E, FA, K) -> int:
-    cfg = M.get_config("deepseek-7b").replace(attn_impl="flash")
-    check(cfg.n_layers == 30 and cfg.d_model == 4096, "not full size")
+# arch -> (n_layers, d_model) of the published configuration
+FULL_SIZE = {"deepseek-7b": (30, 4096), "zamba2-1.2b": (38, 2048),
+             "rwkv6-7b": (32, 4096)}
+
+
+def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
+                **impl) -> dict:
+    """Serve ``arch`` at full size in bf16 (random weights from a seeded
+    generator on the card): 1 + 3 + 1 profiled prefills of 4 x 2048
+    tokens, each checked for ``per_prefill`` launches of each kernel,
+    then greedy generation.  Every kernel counter is set to 0 just before
+    and read just after; returns the counts."""
+    cfg = M.get_config(arch).replace(**impl)
+    check((cfg.n_layers, cfg.d_model) == FULL_SIZE[arch], "not full size")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device="cuda")
@@ -623,7 +653,7 @@ def serve_phase(M, T, E, FA, K) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     n_params = sum(t.numel() for t in M.registry.leaves(engine.params))
-    log(f"serve: deepseek-7b, {cfg.n_layers} layers, {n_params} "
+    log(f"serve: {arch}, {cfg.n_layers} layers, {n_params} "
         f"parameters: init (fp32) + cast to {cfg.dtype} in "
         f"{time.perf_counter() - t0:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -633,16 +663,17 @@ def serve_phase(M, T, E, FA, K) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
                                      generator=gen, device="cuda")}
-    FA.flash_attention.launches = 0
-    K.parzen_log_density.launches = 0
-    K.matern52_cross.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
 
     def one_prefill():
-        before = FA.flash_attention.launches
+        before = {n: fn.launches for n, fn in kernels.items()}
         out = prefill(engine.params, batch)
-        check(FA.flash_attention.launches - before == cfg.n_layers,
-              f"{FA.flash_attention.launches - before} flash launches "
-              f"in one prefill of {cfg.n_layers} layers")
+        for n, fn in kernels.items():
+            got = fn.launches - before[n]
+            check(got == per_prefill.get(n, 0),
+                  f"{got} {n} launches in one {arch} prefill, expected "
+                  f"{per_prefill.get(n, 0)}")
         return out
 
     logits = one_prefill()                        # warm-up
@@ -659,10 +690,10 @@ def serve_phase(M, T, E, FA, K) -> int:
     wall, device = profiled(one_prefill)
     prefill_s = float(np.median(times))
     b, s = batch["tokens"].shape
-    log(f"serve prefill: {b} x {s} tokens, {prefill_s * 1e3:.2f} ms "
+    log(f"serve prefill {arch}: {b} x {s} tokens, {prefill_s * 1e3:.2f} ms "
         f"median of 3 ({[round(t * 1e3, 2) for t in times]}), "
         f"{b * s / prefill_s:.1f} prefill tokens/s")
-    log(breakdown("serve prefill (profiled)", wall, device))
+    log(breakdown(f"serve prefill {arch} (profiled)", wall, device))
 
     rng = np.random.default_rng(2)
     prompts = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
@@ -672,23 +703,244 @@ def serve_phase(M, T, E, FA, K) -> int:
     check(out.shape == (4, 32) and out.dtype == np.int32, "generate shape")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token range")
     steps = 64 + 32 - 1
-    log(f"serve generate: 4 x 64-token prompts, 32 new tokens: "
+    log(f"serve generate {arch}: 4 x 64-token prompts, 32 new tokens: "
         f"{steps} decode steps in {gen_s:.3f} s, "
         f"{4 * steps / gen_s:.1f} decode tokens/s "
         f"({1e3 * gen_s / steps:.2f} ms per step of 4 tokens), "
         f"{4 * 32 / gen_s:.1f} new tokens/s; first row {out[0][:8].tolist()}")
     wall, device = profiled(lambda: engine.generate(prompts[:, :8], 8))
-    log(breakdown("serve decode, 15 steps (profiled)", wall, device))
-    launches = FA.flash_attention.launches
-    check(launches == 5 * cfg.n_layers, f"{launches} flash launches")
-    check(K.parzen_log_density.launches == 0
-          and K.matern52_cross.launches == 0, "acquisition kernels ran")
-    log(f"serve: {launches} flash launches over 5 prefills; peak memory "
+    log(breakdown(f"serve decode {arch}, 15 steps (profiled)", wall, device))
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    for n, got in counts.items():         # decode launches no kernel
+        check(got == 5 * per_prefill.get(n, 0), f"{got} {n} launches")
+    log(f"serve {arch}: launches over 5 prefills {counts}; peak memory "
         f"while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB (max_memory_allocated)")
     del engine, logits, batch
     torch.cuda.empty_cache()
-    return launches
+    return counts
+
+
+# --------------------------------------------------------------------- #
+# phase 9: the SSD and WKV6 scans against their plain versions
+# --------------------------------------------------------------------- #
+# (label, b, S, nh, hd, ds, chunk, dtype)
+SSD_CASES = [
+    ("zamba2-1.2b", 4, 2048, 64, 64, 64, 64, BF16),
+    ("zamba2-1.2b", 4, 2048, 64, 64, 64, 64, FP32),
+    ("chunk 8", 2, 256, 4, 64, 64, 8, FP32),
+    ("chunk 16", 2, 256, 4, 64, 32, 16, BF16),
+    ("one chunk", 2, 64, 4, 64, 64, 64, FP32),
+    ("hd 16", 2, 128, 4, 16, 16, 16, FP32),
+    ("hd 128 ds 128", 1, 256, 2, 128, 128, 64, FP32),
+    ("model views", 2, 256, 8, 64, 64, 64, BF16),
+]
+# (label, b, S, nh, hd, chunk, dtype, with S0)
+WKV_CASES = [
+    ("rwkv6-7b", 4, 2048, 64, 64, 64, BF16, False),
+    ("rwkv6-7b", 4, 2048, 64, 64, 64, FP32, False),
+    ("chunk 8", 2, 256, 4, 64, 8, FP32, False),
+    ("chunk 16", 2, 256, 4, 64, 16, BF16, False),
+    ("one chunk", 2, 64, 4, 64, 64, FP32, False),
+    ("hd 16", 2, 128, 4, 16, 16, FP32, False),
+    ("hd 128", 1, 256, 2, 128, 64, FP32, False),
+    ("S0", 2, 256, 4, 64, 64, FP32, True),
+    ("S0", 2, 256, 4, 64, 32, BF16, True),
+]
+
+
+def ssd_inputs(b, S, nh, hd, ds, dtype, seed, views=False):
+    """x (b,S,nh,hd), dt (b,S,nh) > 0, a_log (nh,) fp32, B and C (b,S,ds);
+    ``views``: x, B and C are slices of one (b, S, nh*hd + 2 ds) tensor,
+    as the model's Mamba2 block passes them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if views:
+        x, B, C = torch.split(rnd(b, S, nh * hd + 2 * ds).to(dtype),
+                              [nh * hd, ds, ds], dim=-1)
+        x = x.unflatten(-1, (nh, hd))
+    else:
+        x, B, C = (rnd(b, S, nh, hd).to(dtype), rnd(b, S, ds).to(dtype),
+                   rnd(b, S, ds).to(dtype))
+    dt = torch.nn.functional.softplus(rnd(b, S, nh)).to(dtype)
+    return x, dt, rnd(nh) * 0.5, B, C
+
+
+def wkv_inputs(b, S, nh, hd, dtype, seed, with_s0):
+    """r, k, v, logw < 0 (b,S,nh,hd) and u (nh,hd) in ``dtype`` (the
+    model passes u cast), S0 (b,nh,hd,hd) fp32 or None."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (rnd(b, S, nh, hd).to(dtype) for _ in range(3))
+    logw = (-torch.exp(rnd(b, S, nh, hd) * 0.8 - 0.5)).to(dtype)
+    u = (rnd(nh, hd) * 0.5).to(dtype)
+    return r, k, v, logw, u, (rnd(b, nh, hd, hd) * 0.5 if with_s0 else None)
+
+
+def scan_bound(nbytes: int, flops: int, exps: int) -> dict:
+    """Bytes at the HBM rate against the products at the bf16 tensor-core
+    rate plus the exponentials at the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / BF16_OPS_PER_S + exps / FP32_OPS_PER_S) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_scan(name, label, dtype, got, want) -> float:
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} {label}: {g.shape} {g.dtype} against {w.shape} "
+              f"{w.dtype}")
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **SCAN_TOL[(name, dtype)])
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    return err
+
+
+def check_ssd(SSD) -> dict:
+    err = 0.0
+    for i, (label, b, S, nh, hd, ds, chunk, dt) in enumerate(SSD_CASES):
+        x, dtv, a_log, B, C = ssd_inputs(b, S, nh, hd, ds, dt, 700 + i,
+                                         views=label == "model views")
+        case_err = compare_scan(
+            "ssd", label, dt, SSD.ssd(x, dtv, a_log, B, C, chunk=chunk),
+            SSD.ssd_ref(x, dtv, a_log, B, C))
+        err = max(err, case_err)
+        log(f"ssd {label}: b {b} S {S} heads {nh} hd {hd} ds {ds} chunk "
+            f"{chunk} {dt}: agrees, max |err| {case_err:.3e}")
+        del x, dtv, a_log, B, C
+        torch.cuda.empty_cache()
+
+    label, b, S, nh, hd, ds, Q, dt = SSD_CASES[0]
+    args = ssd_inputs(b, S, nh, hd, ds, dt, 700)
+    x, dtv, a_log, B, C = args
+    ms = event_times_ms(lambda: SSD.ssd(*args, chunk=Q), 2, 10)
+    plain_ms = event_times_ms(lambda: SSD.ssd_ref(*args), 1, 3)
+    device = kernel_device_us(lambda: SSD.ssd(*args, chunk=Q), "ssd_fwd",
+                              reps=10)
+    n_ch = b * nh * (S // Q)
+    pairs = Q * (Q + 1) // 2              # causal (t, s) pairs of a chunk
+    flops = 2 * n_ch * (pairs * ds + pairs * hd + 2 * Q * hd * ds)
+    exps = n_ch * (pairs + 2 * Q)
+    nbytes = (x.element_size() * (2 * x.numel() + dtv.numel() + B.numel()
+                                  + C.numel())
+              + 4 * (a_log.numel() + b * nh * hd * ds))
+    row = dict(name="ssd", route="cuda",
+               source="src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+               replaces="src/repro/kernels/mamba2_ssd/kernel.py:81",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **scan_bound(nbytes, flops, exps), library_ms=None)
+    log(f"ssd: {len(SSD_CASES)} cases agree (max |err| {err:.3e}); "
+        f"zamba2-1.2b shape: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.4e} "
+        f"flops, {exps:.4e} exps, {nbytes} bytes); kernel device time "
+        f"{device}; achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    del args, x, dtv, a_log, B, C
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_wkv6(WKV) -> dict:
+    err = 0.0
+    for i, (label, b, S, nh, hd, chunk, dt, with_s0) in enumerate(
+            WKV_CASES):
+        r, k, v, logw, u, S0 = wkv_inputs(b, S, nh, hd, dt, 800 + i,
+                                          with_s0)
+        case_err = compare_scan(
+            "wkv6", label, dt,
+            WKV.wkv6(r, k, v, logw, u, chunk=chunk, S0=S0),
+            WKV.wkv6_ref(r, k, v, logw, u, S0))
+        err = max(err, case_err)
+        log(f"wkv6 {label}: b {b} S {S} heads {nh} hd {hd} chunk {chunk} "
+            f"{dt} S0 {with_s0}: agrees, max |err| {case_err:.3e}")
+        del r, k, v, logw, u, S0
+        torch.cuda.empty_cache()
+
+    label, b, S, nh, hd, Q, dt, _ = WKV_CASES[0]
+    r, k, v, logw, u, _ = wkv_inputs(b, S, nh, hd, dt, 800, False)
+    args = (r, k, v, logw, u)
+    ms = event_times_ms(lambda: WKV.wkv6(*args, chunk=Q), 2, 10)
+    plain_ms = event_times_ms(lambda: WKV.wkv6_ref(*args), 1, 3)
+    device = kernel_device_us(lambda: WKV.wkv6(*args, chunk=Q), "wkv6_fwd",
+                              reps=10)
+    n_ch = b * nh * (S // Q)
+    strict = Q * (Q - 1) // 2             # (t, s) pairs with s < t
+    pairs = strict + Q
+    # decayed r.k terms, the u bonus, scores @ v, (r decayed) @ S and the
+    # rank-Q state update
+    flops = n_ch * (3 * strict * hd + 3 * Q * hd + 2 * pairs * hd
+                    + 4 * Q * hd * hd)
+    exps = n_ch * (strict * hd + 2 * Q * hd + hd)
+    nbytes = (r.element_size() * (5 * r.numel() + u.numel())
+              + 4 * b * nh * hd * hd)
+    row = dict(name="wkv6", route="cuda",
+               source="src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
+               replaces="src/repro/kernels/rwkv6_scan/kernel.py:86",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **scan_bound(nbytes, flops, exps), library_ms=None)
+    log(f"wkv6: {len(WKV_CASES)} cases agree (max |err| {err:.3e}); "
+        f"rwkv6-7b shape: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.4e} "
+        f"flops, {exps:.4e} exps, {nbytes} bytes); kernel device time "
+        f"{device}; achieved {(flops + exps) / (ms * 1e-3) / 1e12:.2f} "
+        f"Top/s, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    log("library_ms: null for ssd and wkv6; neither function is a single "
+        "PyTorch call")
+    del r, k, v, logw, u, args
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 10: SSM model parity at full width
+# --------------------------------------------------------------------- #
+def ssm_parity(M, T, E) -> None:
+    """zamba2-1.2b at 7 layers (one group of 6 Mamba2 layers and the
+    shared attention block, then one tail layer) and rwkv6-7b at 2
+    layers, full width, fp32, 2 x 256 tokens."""
+    for arch, n_layers in (("zamba2-1.2b", 7), ("rwkv6-7b", 2)):
+        cfg = M.get_config(arch).replace(n_layers=n_layers,
+                                         dtype=torch.float32)
+        fast = cfg.replace(ssm_impl="pallas", attn_impl="flash")
+        params = T.init_params(cfg, seed=0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                             device="cuda")
+        kern = E.make_prefill_step(fast)(params, {"tokens": toks})
+        ref = E.make_prefill_step(cfg.replace(ssm_impl="ref",
+                                              attn_impl="ref"))(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+        check(kern.shape == (*toks.shape, cfg.vocab_size), "prefill shape")
+        check(bool(torch.isfinite(kern).all()), "prefill logits not finite")
+        torch.testing.assert_close(kern, ref, rtol=2e-3, atol=2e-3)
+        prefill_err = float((kern - ref).abs().max())
+        del kern, ref
+
+        prompt = toks[:, :64]
+        prefill = E.make_prefill_step(fast)(params, {"tokens": prompt})
+        decode = E.make_decode_step(cfg)
+        cache = T.init_cache(cfg, 2, 64, "cuda")
+        for t in range(64):
+            logits, cache = decode(params, cache, prompt[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(logits[:, 0], prefill[:, -1], rtol=2e-3,
+                                   atol=2e-3)
+        decode_err = float((logits[:, 0] - prefill[:, -1]).abs().max())
+        log(f"model parity: {arch}, d_model {cfg.d_model}, {n_layers} "
+            f"layers, fp32, {toks.shape[0]} x {toks.shape[1]} tokens: "
+            f"pallas (+flash) vs ref prefill logits max |err| "
+            f"{prefill_err:.3e}; decode vs prefill at position 63 of a "
+            f"64-token prompt max |err| {decode_err:.3e} (tolerance 2e-3)")
+        del params, cache, logits, prefill
+        torch.cuda.empty_cache()
 
 
 def breakdown(label: str, wall: float, device: dict) -> str:
@@ -714,6 +966,8 @@ def main() -> int:
     from repro_torch import models as M
     from repro_torch import serve as E
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba2_ssd as SSD
+    from repro_torch.kernels import rwkv6_scan as WKV
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -755,8 +1009,29 @@ def main() -> int:
     t0 = lap("phase 6", t0)
     model_parity(M, T, E)
     t0 = lap("phase 7", t0)
-    rows["flash_attention"]["launches"] = serve_phase(M, T, E, FA, K)
-    lap("phase 8", t0)
+    kernels = {"parzen_log_density": K.parzen_log_density,
+               "matern52_cross": K.matern52_cross,
+               "flash_attention": FA.flash_attention, "ssd": SSD.ssd,
+               "wkv6": WKV.wkv6}
+    dense = serve_phase(M, T, E, kernels, "deepseek-7b",
+                        {"flash_attention": 30}, attn_impl="flash")
+    t0 = lap("phase 8", t0)
+    rows["ssd"] = check_ssd(SSD)
+    rows["wkv6"] = check_wkv6(WKV)
+    t0 = lap("phase 9", t0)
+    ssm_parity(M, T, E)
+    t0 = lap("phase 10", t0)
+    hybrid = serve_phase(M, T, E, kernels, "zamba2-1.2b",
+                         {"ssd": 38, "flash_attention": 6},
+                         ssm_impl="pallas", attn_impl="flash")
+    rwkv = serve_phase(M, T, E, kernels, "rwkv6-7b", {"wkv6": 32},
+                       ssm_impl="pallas")
+    lap("phase 11", t0)
+    # launches on the serving paths: flash on deepseek-7b's and zamba2's
+    rows["flash_attention"]["launches"] = (dense["flash_attention"]
+                                           + hybrid["flash_attention"])
+    rows["ssd"]["launches"] = hybrid["ssd"]
+    rows["wkv6"]["launches"] = rwkv["wkv6"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -77,7 +77,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16   # activation/compute dtype
     param_dtype: Any = torch.float32
     attn_impl: str = "ref"         # ref | flash (CUDA kernel) | blocked (torch online-softmax)
-    ssm_impl: str = "ref"          # ref | pallas (not ported)
+    ssm_impl: str = "ref"          # ref | pallas (SSD and WKV6 CUDA kernels)
     kv_quant: bool = False         # int8 KV cache (serving)
     attn_sp: bool = False          # sequence-parallel attention (q seq
     #                                sharded over the context mesh axis;

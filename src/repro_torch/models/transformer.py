@@ -1,11 +1,15 @@
 """The model stack: embedding -> N blocks -> norm -> LM head.
 
-The port covers ``cfg.block == "attn"`` without MoE or a frontend: the
-dense family (deepseek, qwen1.5, qwen3).  Layers are stacked along a
-leading ``layers`` dim, as in the reference, and walked with a Python
-loop.  The other blocks (rwkv6, mamba2, zamba2), MoE and the audio and
-vision frontends raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+Covers, through ``cfg.block``:
+  * ``attn``   — pre-norm attention + MLP (no MoE)      [dense]
+  * ``rwkv6``  — time-mix + channel-mix                  [ssm: rwkv6-7b]
+  * ``mamba2`` — pure SSD stack                          [ssm]
+  * ``zamba2`` — SSD backbone + weight-tied shared attention block every
+                 ``shared_attn_period`` layers           [hybrid]
+
+Layers are stacked along a leading ``layers`` dim, as in the reference,
+and walked with a Python loop.  MoE and the audio and vision frontends
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -15,20 +19,20 @@ import torch
 
 from ..core.kernels import resolve_device
 from . import attention as attn_mod
+from . import mamba2, rwkv6
 from .config import ModelConfig
 from .layers import (ParamInit, init_embedding, init_lm_head, init_mlp,
                      init_rmsnorm, mlp, rmsnorm)
 
 _UNPORTED = "not ported yet: ROADMAP Queue 1 item 2, slice"
+BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
-    if cfg.block != "attn":
-        slice_ = {"mamba2": "2 (SSD scan)", "zamba2": "2 (SSD scan)",
-                  "rwkv6": "3 (WKV6 scan)"}.get(cfg.block, "?")
-        raise NotImplementedError(
-            f"{cfg.name}: block {cfg.block!r} is {_UNPORTED} {slice_}")
+    """Raise ``NotImplementedError`` for a family the port cannot run yet
+    (MoE, the frontends) and ``ValueError`` for an unknown block."""
+    if cfg.block not in BLOCKS:
+        raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE is {_UNPORTED} 1 (MoE serving)")
@@ -50,6 +54,27 @@ def _init_attn_block(mk: ParamInit, cfg: ModelConfig,
                             cfg.glu, stacked)}
 
 
+def _init_rwkv_block(mk: ParamInit, cfg: ModelConfig,
+                     stacked: int | None) -> dict:
+    return {"norm1": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
+            "tmix": rwkv6.init_rwkv6(mk, cfg, stacked),
+            "norm2": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
+            "cmix": rwkv6.init_channel_mix(mk, cfg, stacked)}
+
+
+def _init_mamba_block(mk: ParamInit, cfg: ModelConfig,
+                      stacked: int | None) -> dict:
+    return {"norm": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
+            "mamba": mamba2.init_mamba2(mk, cfg, stacked)}
+
+
+def _zamba_split(cfg: ModelConfig) -> tuple[int, int, int]:
+    period = cfg.shared_attn_period
+    n_groups = cfg.n_layers // period
+    tail = cfg.n_layers - n_groups * period
+    return n_groups, period, tail
+
+
 def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
     """The parameter tree, in ``cfg.param_dtype``, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (None: CUDA,
@@ -60,9 +85,20 @@ def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
     mk = ParamInit(seed, dev)
     p: dict[str, Any] = {
         "embed": init_embedding(mk, cfg.vocab_size, cfg.d_model,
-                                cfg.param_dtype),
-        "blocks": _init_attn_block(mk, cfg, cfg.n_layers),
-        "final_norm": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype)}
+                                cfg.param_dtype)}
+    if cfg.block == "attn":
+        p["blocks"] = _init_attn_block(mk, cfg, cfg.n_layers)
+    elif cfg.block == "rwkv6":
+        p["blocks"] = _init_rwkv_block(mk, cfg, cfg.n_layers)
+    elif cfg.block == "mamba2":
+        p["blocks"] = _init_mamba_block(mk, cfg, cfg.n_layers)
+    else:                                           # zamba2
+        n_groups, period, tail = _zamba_split(cfg)
+        p["mamba_groups"] = _init_mamba_block(mk, cfg, n_groups * period)
+        if tail:
+            p["mamba_tail"] = _init_mamba_block(mk, cfg, tail)
+        p["shared"] = _init_attn_block(mk, cfg, None)     # weight-tied copy
+    p["final_norm"] = init_rmsnorm(mk, cfg.d_model, cfg.param_dtype)
     if not cfg.tie_embeddings:
         p["lm_head"] = init_lm_head(mk, cfg.d_model, cfg.vocab_size,
                                     cfg.param_dtype)
@@ -93,12 +129,38 @@ def _attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x + mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg.act)
 
 
+def _rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = x + rwkv6.rwkv6_seq(p["tmix"], cfg,
+                            rmsnorm(x, p["norm1"], cfg.norm_eps))
+    return x + rwkv6.channel_mix(p["cmix"], cfg,
+                                 rmsnorm(x, p["norm2"], cfg.norm_eps))
+
+
+def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    return x + mamba2.mamba2_seq(p["mamba"], cfg,
+                                 rmsnorm(x, p["norm"], cfg.norm_eps))
+
+
 def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     """Run all blocks (MoE is not ported, so there is no aux loss)."""
     check_ported(cfg)
-    for i in range(cfg.n_layers):
-        x = _attn_block(layer(params["blocks"], i), cfg, x, positions)
+    if cfg.block == "attn":
+        for i in range(cfg.n_layers):
+            x = _attn_block(layer(params["blocks"], i), cfg, x, positions)
+    elif cfg.block in ("rwkv6", "mamba2"):
+        fn = _rwkv_block if cfg.block == "rwkv6" else _mamba_block
+        for i in range(cfg.n_layers):
+            x = fn(layer(params["blocks"], i), cfg, x)
+    else:                                           # zamba2
+        n_groups, period, tail = _zamba_split(cfg)
+        for g in range(n_groups):
+            for i in range(g * period, (g + 1) * period):
+                x = _mamba_block(layer(params["mamba_groups"], i), cfg, x)
+            x = _attn_block(params["shared"], cfg, x, positions)
+        for i in range(tail):
+            x = _mamba_block(layer(params["mamba_tail"], i), cfg, x)
     return x
 
 
@@ -131,11 +193,29 @@ def forward(params: dict, cfg: ModelConfig, batch: dict
 # ===================================================================== #
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> dict:
-    """Per-layer decode state, stacked along layers."""
+    """Per-layer decode state, stacked along layers: the KV cache of the
+    attention layers, the SSM state and conv tail of the Mamba2 layers,
+    the WKV state and token-shift carries of the RWKV6 layers."""
     check_ported(cfg)
-    return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len,
-                                         resolve_device(device),
-                                         stacked=cfg.n_layers)}
+    dev = resolve_device(device)
+    if cfg.block == "attn":
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dev,
+                                             stacked=cfg.n_layers)}
+    if cfg.block == "rwkv6":
+        return {"rwkv": rwkv6.init_rwkv6_state(cfg, batch, dev,
+                                               stacked=cfg.n_layers)}
+    if cfg.block == "mamba2":
+        return {"ssm": mamba2.init_mamba2_state(cfg, batch, dev,
+                                                stacked=cfg.n_layers)}
+    n_groups, period, tail = _zamba_split(cfg)
+    c = {"ssm": mamba2.init_mamba2_state(cfg, batch, dev,
+                                         stacked=n_groups * period),
+         "shared_kv": attn_mod.init_kv_cache(cfg, batch, max_len, dev,
+                                             stacked=n_groups)}
+    if tail:
+        c["ssm_tail"] = mamba2.init_mamba2_state(cfg, batch, dev,
+                                                 stacked=tail)
+    return c
 
 
 def init_cache_arrays(cfg: ModelConfig, batch: int, max_len: int,
@@ -154,18 +234,59 @@ def _decode_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                    cfg.act), kv
 
 
+def _decode_mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        state: dict) -> torch.Tensor:
+    return x + mamba2.mamba2_decode(p["mamba"], cfg,
+                                    rmsnorm(x, p["norm"], cfg.norm_eps),
+                                    state)
+
+
+def _decode_rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       state: dict) -> torch.Tensor:
+    hn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + rwkv6.rwkv6_decode(p["tmix"], cfg, hn,
+                               {"S": state["S"], "shift": state["shift_t"]})
+    hn = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    x = x + rwkv6.channel_mix(p["cmix"], cfg, hn, state["shift_c"])
+    state["shift_c"].copy_(hn)
+    return x
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, cache_len: int
                 ) -> tuple[torch.Tensor, dict]:
     """One new token with existing state.  tokens: (B,1) int; cache_len:
     tokens already in the cache.  Returns (logits (B,1,V), cache): the
-    new token's keys and values are written into ``cache``'s tensors in
-    place (the reference returns an updated copy)."""
+    new token's keys and values and the new SSM, WKV, conv and shift
+    states are written into ``cache``'s tensors in place (the reference
+    returns an updated copy)."""
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
     check_ported(cfg)
     x = params["embed"][tokens].to(cfg.dtype)
-    for i in range(cfg.n_layers):
-        x, _ = _decode_attn_block(layer(params["blocks"], i), cfg, x,
-                                  layer(cache["kv"], i), int(cache_len))
+    cache_len = int(cache_len)
+    if cfg.block == "attn":
+        for i in range(cfg.n_layers):
+            x, _ = _decode_attn_block(layer(params["blocks"], i), cfg, x,
+                                      layer(cache["kv"], i), cache_len)
+    elif cfg.block == "rwkv6":
+        for i in range(cfg.n_layers):
+            x = _decode_rwkv_block(layer(params["blocks"], i), cfg, x,
+                                   layer(cache["rwkv"], i))
+    elif cfg.block == "mamba2":
+        for i in range(cfg.n_layers):
+            x = _decode_mamba_block(layer(params["blocks"], i), cfg, x,
+                                    layer(cache["ssm"], i))
+    else:                                           # zamba2
+        n_groups, period, tail = _zamba_split(cfg)
+        for g in range(n_groups):
+            for i in range(g * period, (g + 1) * period):
+                x = _decode_mamba_block(layer(params["mamba_groups"], i),
+                                        cfg, x, layer(cache["ssm"], i))
+            x, _ = _decode_attn_block(params["shared"], cfg, x,
+                                      layer(cache["shared_kv"], g),
+                                      cache_len)
+        for i in range(tail):
+            x = _decode_mamba_block(layer(params["mamba_tail"], i), cfg, x,
+                                    layer(cache["ssm_tail"], i))
     return logits_fn(params, cfg, x), dict(cache)

@@ -1,9 +1,11 @@
 """Serving: prefill + decode steps and a batched greedy engine.
 
 ``make_prefill_step`` runs the full-sequence forward (flash attention on
-the CUDA kernel when ``cfg.attn_impl == "flash"``); ``make_decode_step``
-adds one token against a KV cache of ``max_len`` slots (window-bounded
-ring for SWA archs).  Both run under ``torch.no_grad()``.
+the CUDA kernel when ``cfg.attn_impl == "flash"``, the SSD and WKV6 scans
+on theirs when ``cfg.ssm_impl == "pallas"``); ``make_decode_step`` adds
+one token against a KV cache of ``max_len`` slots (window-bounded ring
+for SWA archs) and the SSM/WKV states.  Both run under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,14 @@ from ..core.kernels import resolve_device
 from ..models import transformer
 from ..models.config import ModelConfig
 
-# leaves the reference reads in float32 (norm weights); every other
-# floating leaf it casts to cfg.dtype at each use
-FP32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm"})
+# leaves the reference reads in float32: the norm weights (``norm`` is
+# both the Mamba block's and the inner Mamba norm; ``ln_x`` is RWKV6's
+# group norm), the SSM decay parameters ``a_log``, ``dt_bias`` and
+# ``w0``, and RWKV6's bonus ``u`` (read in float32 by decode; the kernel
+# path casts it to cfg.dtype itself, as the reference does).  Every other
+# floating leaf the reference casts to cfg.dtype at each use.
+FP32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm",
+                         "norm", "ln_x", "a_log", "dt_bias", "w0", "u"})
 
 
 def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -31,7 +38,8 @@ def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
 def cast_params(params: dict, cfg: ModelConfig,
                 device: torch.device) -> dict:
     """The tree on ``device`` with each leaf the reference casts to
-    ``cfg.dtype`` at use already cast (norm weights stay as they are)."""
+    ``cfg.dtype`` at use already cast (``FP32_LEAVES`` stay as they
+    are)."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
