@@ -21,17 +21,20 @@ from import, and exits non-zero on any failure:
     window of asks for the device's busy share;
  4. serves a GP study to its 512-observation cap, then a few asks;
  5. runs the speculative pipeline (depth 64) under 64 client threads;
- 6. holds the flash-attention kernel against its plain version on the
-    card (deepseek-7b's and qwen3-32b's shapes, a 4096 window at S 8192,
-    a 32 window, S = 96 and 100, hd 16; 2e-4 in fp32, 2e-2 in bf16) and
-    times it, the plain version and ``F.scaled_dot_product_attention``
-    (the yardstick only; the port never calls it) at deepseek-7b's shape;
+ 6. holds the flash-attention kernels against their plain version on
+    the card (deepseek-7b's, zamba2-1.2b's and qwen3-32b's shapes, a 4096
+    window at S 8192, windows of 200 and 32, S = 96, 100, 200, 300 and
+    1000 with GQA up to 8:1, hd 16 to 128, unaligned views; 2e-4 in fp32,
+    2e-2 in bf16) and times the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` (the yardstick only; the port
+    never calls it) at deepseek-7b's and zamba2-1.2b's shapes;
  7. deepseek-7b at full width, 2 layers, fp32: prefill logits with
     ``attn_impl="flash"`` against ``"ref"`` (2e-3), and token-by-token
     decode logits against the prefill's at the end of a 64-token prompt;
  8. serves deepseek-7b at full size (30 layers, bf16 compute, random
     weights from a seeded generator on the card): ``make_prefill_step``
-    on 4 x 2048 tokens (30 flash launches per call) and
+    on 4 x 2048 tokens (30 flash launches per call, each the Hopper
+    kernel at hd 128 by its profiler symbol) and
     ``ServeEngine.generate`` on 4 x 64-token prompts, 32 new tokens;
  9. holds the SSD and WKV6 kernels against their plain versions (the
     sequential recurrences) on the card: zamba2-1.2b's and rwkv6-7b's
@@ -45,7 +48,8 @@ from import, and exits non-zero on any failure:
     decode logits against the prefill's at the end of a 64-token prompt;
 11. serves zamba2-1.2b (38 layers) and then rwkv6-7b (32 layers) at full
     size in bf16 as phase 8 serves deepseek-7b: 38 SSD and 6 flash
-    launches per zamba2 prefill, 32 WKV6 launches per rwkv6 prefill.
+    launches (the Hopper kernel at hd 64) per zamba2 prefill, 32 WKV6
+    launches per rwkv6 prefill.
 
 The launch counters are set to 0 just before each of phases 3-5, 8 and
 11 (each model of it) and read just after it.  The last three lines are
@@ -146,13 +150,19 @@ def profiled(fn) -> tuple[float, dict[str, tuple[int, float]]]:
 
 
 def kernel_device_us(fn, kernel: str, reps: int = 50) -> str:
-    """Mean device time of one launch of ``kernel`` (by symbol name)."""
+    """Mean device time of one launch of ``kernel``, the symbol of the
+    kernel ``fn`` launches (a template's instance with its arguments, as
+    ``flash_fwd_wgmma_kernel<128>``), and its launch count over ``reps``
+    calls of ``fn``.  Fails if more than one profiler key matches."""
     _, device = profiled(lambda: [fn() for _ in range(reps)])
-    hits = [(n, us) for key, (n, us) in device.items() if kernel in key]
-    if not hits:
+    if not device:
         return "not measured (no device events)"
-    n, us = hits[0]
-    return f"{us / n:.2f} us per launch (profiler, {n} launches)"
+    hits = [(key, n, us) for key, (n, us) in device.items() if kernel in key]
+    check(len(hits) == 1, f"{len(hits)} profiler keys match {kernel!r}: "
+          f"{[key for key, _, _ in hits]}")
+    _, n, us = hits[0]
+    return (f"{us / n:.2f} us per launch ({kernel}, profiler, {n} launches "
+            f"in {reps} calls)")
 
 
 def lap(what: str, t0: float) -> float:
@@ -220,10 +230,11 @@ def check_kernels(K) -> dict[str, dict]:
         replaces="src/repro/core/kernels/parzen.py:88",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=None)
+    device = kernel_device_us(lambda: parzen_lse_cuda(xa, oa),
+                              "parzen_lse_kernel")
     log(f"parzen_log_density: 27 shapes agree (max |err| {err:.3e}); "
         f"C={c} N={n} D={d}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms; kernel device time "
-        f"{kernel_device_us(lambda: parzen_lse_cuda(xa, oa), 'parzen')}")
+        f"ms; kernel device time {device}")
 
     # Matérn: K(X, X) and K(cands, X) at the GP cap, plus ragged
     err = 0.0
@@ -249,10 +260,11 @@ def check_kernels(K) -> dict[str, dict]:
         replaces="src/repro/core/kernels/matern.py:50",
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(nbytes, ops), library_ms=None)
+    device = kernel_device_us(lambda: matern_cuda(aa, aa),
+                              "matern52_kernel")
     log(f"matern52_cross: 6 shapes agree (max |err| {err:.3e}); "
         f"A=B={a} D={d}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"kernel device time "
-        f"{kernel_device_us(lambda: matern_cuda(aa, aa), 'matern')}")
+        f"kernel device time {device}")
     log("library_ms: null for both; neither function is a single "
         "PyTorch call")
     one = torch.zeros(1, device="cuda")
@@ -497,13 +509,19 @@ def speculative_phase(core, K, storage, tokens, space, token, key):
 # phase 6: flash attention against its plain version
 # --------------------------------------------------------------------- #
 # (label, B, Hq, Hkv, S, hd, dtype, causal, window); fp32 runs the scalar
-# kernel, bf16 the tensor-core one
+# kernel, bf16 the Hopper pipeline at hd 64 and 128 and mma.sync at hd 16
+# and 32 (``kernel_symbol``)
 BF16, FP32 = torch.bfloat16, torch.float32
 FLASH_CASES = [
     ("deepseek-7b", 4, 32, 32, 2048, 128, BF16, True, None),
+    ("zamba2-1.2b", 4, 32, 32, 2048, 64, BF16, True, None),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, BF16, True, None),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, FP32, True, None),
     ("window 4096", 1, 32, 8, 8192, 128, BF16, True, 4096),
+    ("S 1000 GQA 8:1", 1, 32, 4, 1000, 128, BF16, True, None),
+    ("window 200", 2, 8, 8, 1024, 64, BF16, True, 200),
+    ("S 300 full", 1, 8, 2, 300, 128, BF16, False, None),
+    ("S 200 full", 2, 4, 4, 200, 64, BF16, False, None),
     ("window 32", 2, 8, 8, 256, 64, FP32, True, 32),
     ("window 32", 2, 8, 8, 256, 64, BF16, True, 32),
     ("S 96", 2, 4, 4, 96, 64, FP32, True, None),
@@ -514,7 +532,10 @@ FLASH_CASES = [
     ("hd 16", 2, 4, 2, 128, 16, FP32, True, None),
     ("hd 16", 2, 4, 2, 100, 16, BF16, True, None),
     ("unaligned view", 2, 4, 2, 100, 32, BF16, True, None),
+    ("unaligned view", 1, 8, 2, 200, 128, BF16, True, None),
 ]
+# the serving shapes, timed: deepseek-7b's (the JSON row) and zamba2's
+FLASH_TIMED = ("deepseek-7b", "zamba2-1.2b")
 
 
 def flash_inputs(b, hq, hkv, s, hd, dtype, seed, unaligned=False):
@@ -536,6 +557,43 @@ def visible_pairs(s: int, causal: bool, window: int | None) -> int:
     return int((hi - lo).sum())
 
 
+def time_flash(FA, case: tuple, seed: int) -> dict:
+    """The kernel, the plain version and SDPA at one shape; returns the
+    kernel's JSON fields."""
+    label, b, hq, hkv, s, hd, dt, causal, window = case
+    q, k, v = flash_inputs(b, hq, hkv, s, hd, dt, seed)
+    ms = event_times_ms(lambda: FA.flash_attention(q, k, v), 2, 10)
+    plain_ms = event_times_ms(lambda: FA.attention_ref(q, k, v), 2, 10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_times_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                2, 10)
+    symbol = FA.ops.kernel_symbol(dt, hd)
+    device = kernel_device_us(lambda: FA.flash_attention(q, k, v), symbol,
+                              reps=10)
+    _, sdpa_events = profiled(lambda: [sdpa(qt, kt, vt, is_causal=True)
+                                       for _ in range(10)])
+    sdpa_device = (f"{sum(us for _, us in sdpa_events.values()) / 10:.2f} "
+                   "us per call (profiler, all its device events: "
+                   + ", ".join(f"{key[:60]} x{n}" for key, (n, _)
+                               in sdpa_events.items()) + ")"
+                   if sdpa_events else "not measured (no device events)")
+    pairs = b * hq * visible_pairs(s, causal, window)
+    ops = 4 * hd * pairs              # q.k and p.v, a multiply-add each
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    fields = dict(ms=ms, plain_ms=plain_ms,
+                  **bound(nbytes, ops, BF16_OPS_PER_S), library_ms=library_ms)
+    log(f"flash_attention at {label}'s shape (B {b}, {hq} heads of {hd}, "
+        f"S {s}, {dt}): wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {fields['bound_ms']:.4f} ms "
+        f"({fields['bound_by']}; {ops:.4e} ops, {nbytes} bytes); kernel "
+        f"device time {device}; SDPA device time {sdpa_device}; achieved "
+        f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s (wrapper)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return fields
+
+
 def check_flash(FA) -> dict:
     err = 0.0
     for i, (label, b, hq, hkv, s, hd, dt, causal, window) in enumerate(
@@ -551,39 +609,21 @@ def check_flash(FA) -> dict:
         case_err = float((out.float() - ref.float()).abs().max())
         err = max(err, case_err)
         log(f"flash {label}: B {b} heads {hq}/{hkv} S {s} hd {hd} {dt} "
-            f"causal {causal} window {window}: agrees, max |err| "
+            f"causal {causal} window {window} "
+            f"({FA.ops.kernel_symbol(dt, hd)}): agrees, max |err| "
             f"{case_err:.3e}")
         del q, k, v, out, ref
         torch.cuda.empty_cache()
-
-    label, b, hq, hkv, s, hd, dt, causal, window = FLASH_CASES[0]
-    q, k, v = flash_inputs(b, hq, hkv, s, hd, dt, 500)
-    ms = event_times_ms(lambda: FA.flash_attention(q, k, v), 2, 10)
-    plain_ms = event_times_ms(lambda: FA.attention_ref(q, k, v), 2, 10)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = event_times_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                2, 10)
-    device = kernel_device_us(lambda: FA.flash_attention(q, k, v),
-                              "flash_fwd", reps=10)
-    pairs = b * hq * visible_pairs(s, causal, window)
-    ops = 4 * hd * pairs              # q.k and p.v, a multiply-add each
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    row = dict(name="flash_attention", route="cuda",
-               source="src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
-               replaces="src/repro/kernels/flash_attention/kernel.py:114",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               **bound(nbytes, ops, BF16_OPS_PER_S), library_ms=library_ms)
     log(f"flash_attention: {len(FLASH_CASES)} cases agree (max |err| "
-        f"{err:.3e}); deepseek-7b shape: wrapper {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {ops:.4e} ops, "
-        f"{nbytes} bytes); kernel device time {device}; achieved "
-        f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return row
+        f"{err:.3e})")
+
+    timed = {c[0]: c for c in FLASH_CASES if c[0] in FLASH_TIMED}
+    fields = [time_flash(FA, timed[label], 500) for label in FLASH_TIMED]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:114",
+                max_abs_err=err, **fields[0])
 
 
 # --------------------------------------------------------------------- #
@@ -637,12 +677,13 @@ FULL_SIZE = {"deepseek-7b": (30, 4096), "zamba2-1.2b": (38, 2048),
 
 
 def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
-                **impl) -> dict:
+                symbols: dict, **impl) -> dict:
     """Serve ``arch`` at full size in bf16 (random weights from a seeded
     generator on the card): 1 + 3 + 1 profiled prefills of 4 x 2048
-    tokens, each checked for ``per_prefill`` launches of each kernel,
-    then greedy generation.  Every kernel counter is set to 0 just before
-    and read just after; returns the counts."""
+    tokens, each checked for ``per_prefill`` launches of each kernel and,
+    in the profiled one, for ``symbols[s]`` device launches of each kernel
+    symbol ``s``, then greedy generation.  Every kernel counter is set to
+    0 just before and read just after; returns the counts."""
     cfg = M.get_config(arch).replace(**impl)
     check((cfg.n_layers, cfg.d_model) == FULL_SIZE[arch], "not full size")
     torch.cuda.reset_peak_memory_stats()
@@ -694,6 +735,16 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
         f"median of 3 ({[round(t * 1e3, 2) for t in times]}), "
         f"{b * s / prefill_s:.1f} prefill tokens/s")
     log(breakdown(f"serve prefill {arch} (profiled)", wall, device))
+    for symbol, n in symbols.items():
+        hits = {key: v for key, v in device.items() if symbol in key}
+        got = sum(c for c, _ in hits.values())
+        check(not device or got == n, f"{got} device launches of {symbol} "
+              f"in one {arch} prefill, expected {n}")
+        log(f"serve prefill {arch}: {symbol} x{got} in the profiled "
+            f"prefill, {sum(us for _, us in hits.values()) / 1e3:.3f} ms "
+            f"of device time" if device else
+            f"serve prefill {arch}: {symbol} not measured (no device "
+            "events)")
 
     rng = np.random.default_rng(2)
     prompts = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
@@ -822,8 +873,8 @@ def check_ssd(SSD) -> dict:
     x, dtv, a_log, B, C = args
     ms = event_times_ms(lambda: SSD.ssd(*args, chunk=Q), 2, 10)
     plain_ms = event_times_ms(lambda: SSD.ssd_ref(*args), 1, 3)
-    device = kernel_device_us(lambda: SSD.ssd(*args, chunk=Q), "ssd_fwd",
-                              reps=10)
+    device = kernel_device_us(lambda: SSD.ssd(*args, chunk=Q),
+                              "ssd_fwd_kernel", reps=10)
     n_ch = b * nh * (S // Q)
     pairs = Q * (Q + 1) // 2              # causal (t, s) pairs of a chunk
     flops = 2 * n_ch * (pairs * ds + pairs * hd + 2 * Q * hd * ds)
@@ -868,8 +919,8 @@ def check_wkv6(WKV) -> dict:
     args = (r, k, v, logw, u)
     ms = event_times_ms(lambda: WKV.wkv6(*args, chunk=Q), 2, 10)
     plain_ms = event_times_ms(lambda: WKV.wkv6_ref(*args), 1, 3)
-    device = kernel_device_us(lambda: WKV.wkv6(*args, chunk=Q), "wkv6_fwd",
-                              reps=10)
+    device = kernel_device_us(lambda: WKV.wkv6(*args, chunk=Q),
+                              "wkv6_fwd_kernel", reps=10)
     n_ch = b * nh * (S // Q)
     strict = Q * (Q - 1) // 2             # (t, s) pairs with s < t
     pairs = strict + Q
@@ -1014,7 +1065,9 @@ def main() -> int:
                "flash_attention": FA.flash_attention, "ssd": SSD.ssd,
                "wkv6": WKV.wkv6}
     dense = serve_phase(M, T, E, kernels, "deepseek-7b",
-                        {"flash_attention": 30}, attn_impl="flash")
+                        {"flash_attention": 30},
+                        {FA.ops.kernel_symbol(BF16, 128): 30},
+                        attn_impl="flash")
     t0 = lap("phase 8", t0)
     rows["ssd"] = check_ssd(SSD)
     rows["wkv6"] = check_wkv6(WKV)
@@ -1023,9 +1076,11 @@ def main() -> int:
     t0 = lap("phase 10", t0)
     hybrid = serve_phase(M, T, E, kernels, "zamba2-1.2b",
                          {"ssd": 38, "flash_attention": 6},
+                         {"ssd_fwd_kernel": 38,
+                          FA.ops.kernel_symbol(BF16, 64): 6},
                          ssm_impl="pallas", attn_impl="flash")
     rwkv = serve_phase(M, T, E, kernels, "rwkv6-7b", {"wkv6": 32},
-                       ssm_impl="pallas")
+                       {"wkv6_fwd_kernel": 32}, ssm_impl="pallas")
     lap("phase 11", t0)
     # launches on the serving paths: flash on deepseek-7b's and zamba2's
     rows["flash_attention"]["launches"] = (dense["flash_attention"]

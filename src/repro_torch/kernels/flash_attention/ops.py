@@ -6,11 +6,16 @@ function, like the reference's ``ops.flash_attention``; the kernel reads
 that layout through its strides, so nothing is transposed or copied on
 the card.  The reference's block-size choice (``_largest_divisor_block``)
 has no counterpart: the kernel masks ragged tiles itself and any S and T
-work.  bf16 operands whose rows do not start on 16-byte boundaries (an
-odd view) are copied once, since the bf16 path loads 16-byte vectors.
-The kernel is forward-only, as the TPU kernel is: with autograd
-recording and an input that requires grad, the op raises instead of
-returning a wrong gradient.
+work.  Which kernel a call launches depends on its type and head dim
+alone (``kernel_symbol``): bf16 at hd 64 and 128 takes the Hopper
+pipeline, which loads q, k and v with TMA through tensor maps built for
+each call over their (hd, H, S, B) views; that needs every row to start
+on a 16-byte boundary (a 16-byte aligned pointer, strides that are
+multiples of 8 elements), as do the 16-byte loads of the bf16 kernel for
+hd 16 and 32.  bf16 operands that break the rule (an odd view) are
+copied once.  The kernel is forward-only, as the TPU kernel is: with
+autograd recording and an input that requires grad, the op raises
+instead of returning a wrong gradient.
 """
 from __future__ import annotations
 
@@ -23,9 +28,9 @@ from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 _TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
-# (q, k, v, o, 4 x (b, s, h) strides, B, Hq, Hkv, S, T, hd, causal,
-#  window, is_bf16, stream) -> cudaError_t
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 12
+# (q, k, v, o, work counter, 4 x (b, s, h) strides, B, Hq, Hkv, S, T, hd,
+#  causal, window, is_bf16, stream) -> cudaError_t
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 12
              + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
 
 
@@ -61,6 +66,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "or use attn_impl='ref' for gradients")
 
 
+def _hopper(dtype: torch.dtype, hd: int) -> bool:
+    return dtype == torch.bfloat16 and hd >= 64
+
+
+def kernel_symbol(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel that a call with this type and head dim launches,
+    as a profiler names its template instance: the Hopper pipeline (TMA,
+    wgmma, warp-specialised, persistent) for bf16 at hd 64 and 128,
+    ``mma.sync`` for bf16 at hd 16 and 32, plain FMAs for fp32."""
+    if _hopper(dtype, hd):
+        return f"flash_fwd_wgmma_kernel<{hd}>"
+    if dtype == torch.bfloat16:
+        return f"flash_fwd_mma_kernel<{hd}>"
+    return f"flash_fwd_kernel<{hd}>"
+
+
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Every (b, s, h) row of ``t`` starts on a 16-byte boundary."""
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0
@@ -86,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _TYPE_FLAG:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if q.dtype == torch.bfloat16:                 # 16-byte tile loads
+    if q.dtype == torch.bfloat16:           # TMA and 16-byte tile loads
         q, k, v = (t if _rows_aligned(t) else
                    torch.empty_like(t, memory_format=torch.contiguous_format
                                     ).copy_(t) for t in (q, k, v))
@@ -95,8 +116,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    # the Hopper kernel's blocks take work items from this counter, which
+    # its launch sets to 0
+    work = (torch.empty(1, dtype=torch.int32, device=q.device)
+            if _hopper(q.dtype, hd) else None)
     call("flash_attention", _ARGTYPES, q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         None if work is None else work.data_ptr(),
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *out.stride()[:3], B, Hq, Hkv, S, T, hd, int(causal),
          window or 0, _TYPE_FLAG[q.dtype])

@@ -17,7 +17,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.flash_attention import ops as ref_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as ref_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention, ref)
+    attention_ref, flash_attention, ops, ref)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -38,6 +38,17 @@ CASES = {
     "hd128-gqa-bf16": (1, 8, 2, 64, 64, 128, "bfloat16", True, None),
     # full window of 8 over T = 8 keys: rows 15.. see no key -> 0
     "fully-masked-rows": (1, 2, 2, 32, 8, 16, "float32", False, 8),
+    # the edges of the card's 128 x 128 tiles at hd 64 and 128: S and T
+    # not multiples of 128, GQA 8:1, windows that are not tile multiples
+    "gqa-8-1-hd128-s200-bf16": (1, 8, 1, 200, 200, 128, "bfloat16", True,
+                                None),
+    "window-40-hd64-s300": (1, 4, 4, 300, 300, 64, "float32", True, 40),
+    "window-200-hd64-s260-bf16": (1, 2, 2, 260, 260, 64, "bfloat16", True,
+                                  200),
+    "full-hd128-s136-t264-bf16": (1, 4, 2, 136, 264, 128, "bfloat16", False,
+                                  None),
+    "causal-hd64-s130-t260-bf16": (2, 2, 1, 130, 260, 64, "bfloat16", True,
+                                   None),
 }
 
 
@@ -128,3 +139,17 @@ def test_op_raises_on_bad_shapes_and_window():
     q, k, v = _port(_inputs(1, 2, 2, 16, 16, 16, seed=0), "float32")
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("dtype,hd,symbol", [
+    ("bfloat16", 128, "flash_fwd_wgmma_kernel<128>"),
+    ("bfloat16", 64, "flash_fwd_wgmma_kernel<64>"),
+    ("bfloat16", 32, "flash_fwd_mma_kernel<32>"),
+    ("bfloat16", 16, "flash_fwd_mma_kernel<16>"),
+    ("float32", 128, "flash_fwd_kernel<128>"),
+    ("float32", 64, "flash_fwd_kernel<64>"),
+])
+def test_kernel_symbol_follows_type_and_head_dim(dtype, hd, symbol):
+    """The kernel a CUDA call launches depends on its type and head dim
+    alone; ``chip_smoke.py`` reads each one's device time by this name."""
+    assert ops.kernel_symbol(getattr(torch, dtype), hd) == symbol
