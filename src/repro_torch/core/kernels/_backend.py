@@ -179,6 +179,15 @@ def check_cuda_operand(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if every row of it (all but the last dim) starts on a 16-byte
+    boundary, as the kernels' 16-byte and TMA loads need, else a
+    contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1]):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 _count_lock = threading.Lock()
 
 

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import call, count_launch
+from ...core.kernels._backend import aligned_rows, call, count_launch
 from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -82,12 +82,6 @@ def kernel_symbol(dtype: torch.dtype, hd: int) -> str:
     return f"flash_fwd_kernel<{hd}>"
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """Every (b, s, h) row of ``t`` starts on a 16-byte boundary."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                          for st in t.stride()[:3])
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None
                     ) -> torch.Tensor:
@@ -108,9 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if q.dtype == torch.bfloat16:           # TMA and 16-byte tile loads
-        q, k, v = (t if _rows_aligned(t) else
-                   torch.empty_like(t, memory_format=torch.contiguous_format
-                                    ).copy_(t) for t in (q, k, v))
+        q, k, v = (aligned_rows(t) for t in (q, k, v))
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -6,8 +6,13 @@ hd)).  The reference's wrapper precomputes the dt-weighted x and the
 in-chunk log-decay cumsum and moves heads in front of the sequence; the
 kernel does both itself, inside the block that walks the chunks, and
 reads x, dt, B and C through their strides, so nothing is copied here.
-The kernel is forward-only, as the TPU kernel is: with autograd
-recording and an input that requires grad, the op raises.
+Which kernel a call launches depends on its type and dims alone
+(``kernel_symbol``): bf16 at hd and ds 16, 32 and 64 takes the
+tensor-core kernel, which loads x, B and C with 16-byte ``cp.async``
+copies and so needs every row on a 16-byte boundary (the model's views
+of its fused projection have it); a bf16 view that breaks the rule is
+copied once.  The kernel is forward-only, as the TPU kernel is: with
+autograd recording and an input that requires grad, the op raises.
 """
 from __future__ import annotations
 
@@ -15,11 +20,12 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import call, count_launch
+from ...core.kernels._backend import aligned_rows, call, count_launch
 from . import ref
 
 MAX_CHUNK = 64
-DIMS = (16, 32, 64, 128)            # the hd and ds the kernel is built for
+DIMS = (16, 32, 64, 128)            # the hd and ds the kernels are built for
+MMA_DIMS = (16, 32, 64)             # bf16 on tensor cores
 _TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 # (x, dt, a_log, B, C, y, h_final, x/dt/y (b, s, h) strides, B/C (b, s)
 #  strides, batch, S, nh, hd, ds, chunk, is_bf16, stream) -> cudaError_t
@@ -53,6 +59,22 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return Q
 
 
+def _tensor_cores(dtype: torch.dtype, hd: int, ds: int) -> bool:
+    return dtype == torch.bfloat16 and hd in MMA_DIMS and ds in MMA_DIMS
+
+
+def kernel_symbol(dtype: torch.dtype, hd: int, ds: int) -> str:
+    """The CUDA kernel that a call with this type, head dim and state
+    dim launches, as a profiler names its template instance: tensor
+    cores (mma.sync, cp.async) for bf16 with hd and ds in ``MMA_DIMS``,
+    plain float32 FMAs otherwise."""
+    if _tensor_cores(dtype, hd, ds):
+        return f"ssd_mma_kernel<{hd}, {ds}>"
+    if dtype == torch.bfloat16:
+        return f"ssd_fwd_kernel<__nv_bfloat16, {hd}, {ds}>"
+    return f"ssd_fwd_kernel<float, {hd}, {ds}>"
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64
         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,6 +98,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          f"hd, ds in {DIMS}; got chunk {Q}, hd {hd}, ds {ds}")
     if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("x, B and C need a dense last dim")
+    if _tensor_cores(x.dtype, hd, ds):  # cp.async rows
+        x, B, C = (aligned_rows(t) for t in (x, B, C))
     a32 = a_log.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     h = torch.empty((b, nh, hd, ds), dtype=torch.float32, device=x.device)

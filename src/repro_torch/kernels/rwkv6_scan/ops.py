@@ -7,8 +7,13 @@ moves heads in front of the sequence, and hands a carried state ``S0``
 to the plain chunked form; the kernel does the cumsum inside the block
 that walks the chunks, reads r, k, v and logw through their strides, and
 takes ``S0`` itself (zero when absent), so a CUDA tensor never reaches
-the plain version.  The kernel is forward-only, as the TPU kernel is:
-with autograd recording and an input that requires grad, the op raises.
+the plain version.  Which kernel a call launches depends on its type and
+head dim alone (``kernel_symbol``): bf16 at hd 16, 32 and 64 takes the
+tensor-core kernel, which loads its tiles with 16-byte ``cp.async``
+copies and so needs every (b, s, h) row on a 16-byte boundary; a bf16
+view that breaks the rule is copied once.  The kernel is forward-only,
+as the TPU kernel is: with autograd recording and an input that requires
+grad, the op raises.
 """
 from __future__ import annotations
 
@@ -16,11 +21,12 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import call, count_launch
+from ...core.kernels._backend import aligned_rows, call, count_launch
 from . import ref
 
 MAX_CHUNK = 64
-HEAD_DIMS = (16, 32, 64, 128)       # the hd the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)       # the hd the kernels are built for
+MMA_HEAD_DIMS = (16, 32, 64)        # bf16 on tensor cores
 _TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 # (r, k, v, logw, u, S0 or NULL, o, S_final, r/k/v/logw/o (b, s, h)
 #  strides, batch, S, nh, hd, chunk, is_bf16, stream) -> cudaError_t
@@ -57,6 +63,22 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return Q
 
 
+def _tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    return dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+
+
+def kernel_symbol(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA kernel that a call with this type and head dim launches,
+    as a profiler names its template instance: tensor cores (mma.sync,
+    cp.async, the decay factored over sub-blocks) for bf16 at hd 16, 32
+    and 64, plain float32 FMAs for fp32 and for bf16 at hd 128."""
+    if _tensor_cores(dtype, hd):
+        return f"wkv6_mma_kernel<{hd}>"
+    if dtype == torch.bfloat16:
+        return f"wkv6_fwd_kernel<__nv_bfloat16, {hd}>"
+    return f"wkv6_fwd_kernel<float, {hd}>"
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
          S0: torch.Tensor | None = None
@@ -81,6 +103,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the wkv6 kernel takes chunk <= {MAX_CHUNK}, hd in "
                          f"{HEAD_DIMS} and a dense head dim; got chunk {Q}, "
                          f"hd {hd}, strides {r.stride()}")
+    if _tensor_cores(r.dtype, hd):  # cp.async rows
+        r, k, v, logw = (aligned_rows(t) for t in (r, k, v, logw))
     dev = r.device
     u32 = u.to(device=dev, dtype=torch.float32).contiguous()
     s0 = (None if S0 is None

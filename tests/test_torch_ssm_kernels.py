@@ -284,3 +284,113 @@ def test_op_is_forward_only(op):
     with torch.no_grad():
         out, _ = fn(*args, chunk=8)
     assert out.shape == args[0].shape
+
+
+# ------------------------------------------------------------------ #
+# strong decays
+# ------------------------------------------------------------------ #
+def _strong_wkv_inputs(seed, b, S, nh, hd):
+    """As ``_wkv_inputs`` with logw log-uniform in [-30, -1e-3] a step."""
+    r, k, v, _, u, S0 = _wkv_inputs(seed, b, S, nh, hd)
+    rng = np.random.default_rng(seed + 1)
+    logw = -np.exp(rng.uniform(np.log(1e-3), np.log(30.0), r.shape))
+    return r, k, v, logw.astype(np.float32), u, S0
+
+
+def _strong_ssd_inputs(seed, b, S, nh, hd, ds):
+    """As ``_ssd_inputs`` with dt up to 10 and A down to -5: dt * A
+    reaches -50 a step."""
+    x, _, _, B, C = _ssd_inputs(seed, b, S, nh, hd, ds)
+    rng = np.random.default_rng(seed + 1)
+    dt = rng.uniform(0.01, 10.0, (b, S, nh)).astype(np.float32)
+    a_log = np.linspace(-1.0, np.log(5.0), nh).astype(np.float32)
+    return x, dt, a_log, B, C
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv6_strong_decay_matches_reference(reference, chunk):
+    """logw down to -30 a step: the port's plain version against the
+    reference's recurrence, and the port's chunked form against the
+    reference's, with and without a carried state."""
+    arrays = _strong_wkv_inputs(30 + chunk, 2, 128, 2, 16)
+    o, S = wkv6(*_port(arrays[:5]), chunk=chunk)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(S).all())
+    o_r, S_r = ref_wkv_ref.wkv6_ref(*_ref(arrays[:5]))
+    _close(o, o_r)
+    _close(S, S_r)
+    for S0 in (None, arrays[5]):
+        y, S = rwkv6.wkv6_chunked(
+            *_port(arrays[:5]), chunk=chunk,
+            S0=None if S0 is None else torch.from_numpy(S0))
+        y_m, S_m = reference.rwkv6.wkv6_chunked(
+            *_ref(arrays[:5]), chunk=chunk,
+            S0=None if S0 is None else jnp.asarray(S0))
+        assert bool(torch.isfinite(y).all())
+        _close(y, y_m)
+        _close(S, S_m)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_strong_decay_matches_reference(reference, chunk):
+    """dt * A down to -50 a step: the port's plain version and chunked
+    form against the reference's recurrence and chunked form."""
+    arrays = _strong_ssd_inputs(40 + chunk, 2, 128, 3, 16, 8)
+    y, h = ssd(*_ssd_port_args(arrays), chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    y_r, h_r = ref_ssd_ref.ssd_ref(*_ssd_ref_args(arrays))
+    _close(y, y_r)
+    _close(h, h_r)
+    y, h = mamba2.ssd_chunked(*_ssd_port_args(arrays), chunk=chunk)
+    y_m, h_m = reference.mamba2.ssd_chunked(*_ssd_ref_args(arrays),
+                                            chunk=chunk)
+    assert bool(torch.isfinite(y).all())
+    _close(y, y_m)
+    _close(h, h_m)
+    _close(y, y_r)
+    _close(h, h_r)
+
+
+# ------------------------------------------------------------------ #
+# which kernel a CUDA call launches
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("dtype,hd,symbol", [
+    ("bfloat16", 64, "wkv6_mma_kernel<64>"),
+    ("bfloat16", 32, "wkv6_mma_kernel<32>"),
+    ("bfloat16", 16, "wkv6_mma_kernel<16>"),
+    ("bfloat16", 128, "wkv6_fwd_kernel<__nv_bfloat16, 128>"),
+    ("float32", 64, "wkv6_fwd_kernel<float, 64>"),
+    ("float32", 128, "wkv6_fwd_kernel<float, 128>"),
+])
+def test_wkv6_kernel_symbol_follows_type_and_head_dim(dtype, hd, symbol):
+    """The kernel a CUDA call launches depends on its type and head dim
+    alone; ``chip_smoke.py`` reads its device time and checks the served
+    prefill's launches by this name."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    assert ops.kernel_symbol(getattr(torch, dtype), hd) == symbol
+
+
+@pytest.mark.parametrize("dtype,hd,ds,symbol", [
+    ("bfloat16", 64, 64, "ssd_mma_kernel<64, 64>"),
+    ("bfloat16", 32, 16, "ssd_mma_kernel<32, 16>"),
+    ("bfloat16", 16, 32, "ssd_mma_kernel<16, 32>"),
+    ("bfloat16", 64, 128, "ssd_fwd_kernel<__nv_bfloat16, 64, 128>"),
+    ("bfloat16", 128, 64, "ssd_fwd_kernel<__nv_bfloat16, 128, 64>"),
+    ("float32", 64, 64, "ssd_fwd_kernel<float, 64, 64>"),
+])
+def test_ssd_kernel_symbol_follows_type_and_dims(dtype, hd, ds, symbol):
+    from repro_torch.kernels.mamba2_ssd import ops
+    assert ops.kernel_symbol(getattr(torch, dtype), hd, ds) == symbol
+
+
+def test_aligned_rows_copies_only_views_off_16_byte_rows():
+    """The tensor-core scans load rows with 16-byte ``cp.async`` copies:
+    a view whose rows start off such a boundary is copied, any other
+    tensor is passed through."""
+    from repro_torch.core.kernels._backend import aligned_rows
+    view = torch.zeros((2, 8, 4, 72), dtype=torch.bfloat16)[..., :64]
+    assert aligned_rows(view) is view          # rows 144 bytes apart
+    fused = torch.randn((2, 8, 4, 65)).to(torch.bfloat16)
+    for odd in (fused[..., :64], fused[..., 1:]):  # 130-byte rows; offset
+        copy = aligned_rows(odd)
+        assert copy is not odd and copy.is_contiguous()
+        assert torch.equal(copy, odd)
