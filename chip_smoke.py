@@ -10,16 +10,25 @@ from import, and exits non-zero on any failure:
     ``src/repro_torch``: Parzen, Matérn, flash attention, the SSD scan,
     the WKV6 scan; one nvcc per source, in parallel) into the ``build/``
     beside each ``csrc/``;
- 2. holds each acquisition kernel against its plain PyTorch version on
-    the card at the service's shapes plus ragged ones (rtol = atol =
-    2e-4), times both (median of per-launch CUDA-event times after
-    warm-up) and reads the kernel's own device time from the profiler;
+ 2. holds the two acquisition kernels against their plain PyTorch
+    versions on the card (rtol = atol = 2e-4): the Parzen kernel as
+    ``parzen_log_density`` (27 shapes) and as ``tpe_score``, a whole
+    proposal round (36 shapes, C up to 256, Ng 32 / Nb 8192), and edge
+    cases (cluster slices made only of padding, one valid row in the
+    last slice, fully masked mixtures, tiles smaller than a slice); the
+    Matérn kernel unmasked and as the GP's masked K and Ks (6 shapes
+    each); times the wrappers and the plain versions (median of
+    per-launch CUDA-event times after warm-up) beside the launch floor
+    and reads each kernel's device time from the profiler by symbol;
  3. serves a TPE study over HTTP (2 API workers, event-loop frontend,
     durable storage with group fsync): 5,000 completed trials on the
     5-parameter space of ``benchmarks/bench_ask_latency.py``, then timed
     single asks and tells and ``ask_batch(16)`` calls, then a profiled
-    window of asks for the device's busy share;
- 4. serves a GP study to its 512-observation cap, then a few asks;
+    window of asks for the device's busy share and device events per
+    ask; exactly one ``tpe_score`` launch per proposal round;
+ 4. serves a GP study to 20 below its 512-observation cap, times 20
+    ask/tell pairs, then a few asks at the cap; exactly two Matérn
+    launches (K and Ks) per EI evaluation;
  5. runs the speculative pipeline (depth 64) under 64 client threads;
  6. holds the flash-attention kernels against their plain version on
     the card (deepseek-7b's, zamba2-1.2b's and qwen3-32b's shapes, a 4096
@@ -70,6 +79,7 @@ sys.modules["repro"] = None      # ... and without the JAX package
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import threading  # noqa: E402
@@ -186,13 +196,18 @@ def pct(xs: list[float], q: float) -> float:
 # --------------------------------------------------------------------- #
 # phase 2: each kernel against its plain version
 # --------------------------------------------------------------------- #
-def parzen_inputs(c, n, d, n_valid, seed):
+def parzen_inputs(c, d, mixtures, seed):
+    """cands (C, D) and, for each mixture (rows, valid rows as a slice),
+    obs (rows, D), its 0/1 mask and bandwidths (D,), on the card."""
     rng = np.random.default_rng(seed)
-    arrays = (rng.uniform(size=(c, d)), rng.uniform(size=(n, d)),
-              (np.arange(n) < n_valid).astype(np.float64),
-              rng.uniform(0.05, 0.7, size=d))
+    out = [rng.uniform(size=(c, d))]
+    for n, valid in mixtures:
+        mask = np.zeros(n)
+        mask[valid] = 1.0
+        out += [rng.uniform(size=(n, d)), mask,
+                rng.uniform(0.05, 0.7, size=d)]
     return [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-            for a in arrays]
+            for a in out]
 
 
 def matern_inputs(a, b, d, seed):
@@ -203,88 +218,221 @@ def matern_inputs(a, b, d, seed):
             for x in arrays]
 
 
-def check_kernels(K) -> dict[str, dict]:
-    from repro_torch.core.kernels.matern import matern_cuda
-    from repro_torch.core.kernels.parzen import parzen_lse_cuda
+def agree(out, ref, what: str) -> tuple[float, float]:
+    """Hold ``out`` against ``ref`` at TOL (equal infinities agree);
+    returns the largest finite |difference| and the largest share of its
+    tolerance (atol + rtol |ref|) that a difference takes."""
+    torch.cuda.synchronize()
+    try:
+        torch.testing.assert_close(out, ref, **TOL)
+    except AssertionError as e:
+        raise RuntimeError(f"check failed: {what}: {e}") from None
+    diff = (out - ref).abs()
+    share = diff / (TOL["atol"] + TOL["rtol"] * ref.abs())
+    finite = torch.isfinite(diff)
+    if not finite.any():
+        return 0.0, 0.0
+    return float(diff[finite].max()), float(share[finite].max())
 
-    rows = {}
-    # Parzen: the service's pool sizes and mixture sizes plus ragged ones
-    err = 0.0
+
+class Agreement:
+    """The largest |difference| and tolerance share over many checks."""
+
+    def __init__(self):
+        self.err = self.share = 0.0
+
+    def add(self, out, ref, what: str) -> None:
+        err, share = agree(out, ref, what)
+        self.err, self.share = max(self.err, err), max(self.share, share)
+
+    def __str__(self) -> str:
+        return (f"max |err| {self.err:.3e}, at most {self.share:.3f} of "
+                "the tolerance")
+
+
+def acq_timing(label, fn, plain, args, symbol, nbytes, flops, exps,
+               floor_ms) -> dict:
+    """Wrapper, plain and device time of one acquisition op, its bound
+    (bytes at the HBM rate against FMAs at the fp32 rate and
+    exponentials at the SFU rate), logged beside the launch floor."""
+    ms = event_times_ms(lambda: fn(*args))
+    plain_ms = event_times_ms(lambda: plain(*args))
+    fields = dict(ms=ms, plain_ms=plain_ms, **bound(nbytes, flops,
+                                                      exps=exps),
+                  library_ms=None)
+    device = kernel_device_us(lambda: fn(*args), symbol)
+    log(f"{label}: wrapper {ms:.4f} ms ({ms / floor_ms:.2f} launch "
+        f"floors), plain {plain_ms:.4f} ms, bound "
+        f"{fields['bound_ms'] * 1e3:.4f} us ({fields['bound_by']}; "
+        f"{nbytes} bytes, {flops:.4e} flops, {exps:.4e} exponentials); "
+        f"kernel device time {device}")
+    return fields
+
+
+def parzen_work(c, d, mixtures):
+    """(bytes, flops, exponentials) of a Parzen launch with this run's
+    masks: each input read once, the output written once; per valid
+    (candidate, row) pair D FMAs, four other operations and one
+    exponential."""
+    sizes = [obs.shape[0] for obs, _, _ in mixtures]
+    valid = sum(int((mask > 0).sum()) for _, mask, _ in mixtures)
+    nbytes = 4 * (c * d + sum(sizes) * (d + 1) + len(mixtures) * d + c)
+    return nbytes, c * valid * (2 * d + 4), c * valid
+
+
+def matern_work(a, b, d, masks: int):
+    """(bytes, flops, exponentials) of a Matérn launch: per output D FMAs,
+    ten other operations and one exponential."""
+    nbytes = 4 * (a * d + b * d + d + a * b + masks)
+    return nbytes, a * b * (2 * d + 10), a * b
+
+
+# Parzen cases beyond the 27 prefix-masked shapes: (label, C, D,
+# [(rows, valid rows) of each mixture]); one mixture runs
+# ``parzen_log_density``, two ``tpe_score`` ([good, bad])
+PARZEN_EDGE = [
+    ("padding-only cluster slices", 64, 5, [(8192, slice(0, 100))]),
+    ("one valid row in the last slice", 64, 5, [(8192, slice(8191, 8192))]),
+    ("fully masked", 64, 3, [(300, slice(0, 0))]),
+    ("padding-only cluster slices", 64, 5, [(32, slice(0, 25)),
+                                            (8192, slice(0, 100))]),
+    ("one valid row in the last slice", 128, 5,
+     [(8, slice(0, 1)), (1000, slice(999, 1000))]),
+    ("fully masked good mixture", 64, 5, [(32, slice(0, 0)),
+                                          (300, slice(0, 250))]),
+    ("tiles smaller than a slice", 256, 100, [(32, slice(0, 30)),
+                                              (4096, slice(0, 3000))]),
+]
+
+
+def check_parzen(K, floor_ms) -> dict:
+    agreed = Agreement()
+    n_cases = 0
     seed = 0
-    for c in (64, 96, 128):
+    for c in (64, 96, 128):                    # one mixture, masked tail
         for n in (32, 300, 8192):
             for d in (1, 5, 11):
-                n_valid = max(1, n - n // 5)          # masked tail
-                x, obs, mask, bw = parzen_inputs(c, n, d, n_valid, seed)
+                x, *mix = parzen_inputs(c, d, [(n, slice(0, max(
+                    1, n - n // 5)))], seed)
                 seed += 1
-                out = K.parzen_log_density(x, obs, mask, bw)
-                ref = K.parzen_log_density_plain(x, obs, mask, bw)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(out, ref, **TOL)
-                err = max(err, float((out - ref).abs().max()))
-    c, n, d = 64, 8192, 5                             # the bad mixture
-    args = parzen_inputs(c, n, d, 4975, 1234)
-    ms = event_times_ms(lambda: K.parzen_log_density(*args))
-    plain_ms = event_times_ms(lambda: K.parzen_log_density_plain(*args))
-    x, obs, mask, bw = args
-    xa = torch.cat([x / bw, -torch.ones(c, 1, device="cuda")], 1)
-    oa = torch.cat([obs / bw, torch.ones(n, 1, device="cuda")], 1)
-    nbytes = 4 * (c * d + n * d + n + d + c)
-    ops = c * n * (2 * (d + 1) + 3)   # FMAs of the product, sub, exp, add
-    rows["parzen_log_density"] = dict(
-        name="parzen_log_density", route="cuda",
-        source="src/repro_torch/core/kernels/csrc/parzen.cu",
-        replaces="src/repro/core/kernels/parzen.py:88",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(nbytes, ops), library_ms=None)
-    device = kernel_device_us(lambda: parzen_lse_cuda(xa, oa),
-                              "parzen_lse_kernel")
-    log(f"parzen_log_density: 27 shapes agree (max |err| {err:.3e}); "
-        f"C={c} N={n} D={d}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms; kernel device time {device}")
+                agreed.add(K.parzen_log_density(x, *mix),
+                           K.parzen_log_density_plain(x, *mix),
+                           f"parzen C={c} N={n} D={d}")
+                n_cases += 1
+    for c in (64, 96, 128, 256):               # the TPE score
+        for ng, nb in ((32, 8192), (8, 16), (32, 300)):
+            for d in (1, 5, 11):
+                args = parzen_inputs(c, d, [(ng, slice(0, ng - ng // 5)),
+                                            (nb, slice(0, nb - nb // 3))],
+                                     seed)
+                seed += 1
+                args = [args[0], *args[1:3], *args[4:6], args[3], args[6]]
+                agreed.add(K.tpe_score(*args), K.tpe_score_plain(*args),
+                           f"tpe_score C={c} {ng}/{nb} D={d}")
+                n_cases += 1
+    for label, c, d, mixes in PARZEN_EDGE:
+        args = parzen_inputs(c, d, mixes, seed)
+        seed += 1
+        if len(mixes) == 1:
+            out = K.parzen_log_density(*args)
+            ref = K.parzen_log_density_plain(*args)
+        else:
+            args = [args[0], *args[1:3], *args[4:6], args[3], args[6]]
+            out, ref = K.tpe_score(*args), K.tpe_score_plain(*args)
+        agreed.add(out, ref, f"parzen {label}")
+        check(bool(torch.isfinite(out).all()) or label == "fully masked",
+              f"parzen {label}: not finite")
+        n_cases += 1
+    log(f"parzen kernel: {n_cases} cases agree ({agreed}): 27 "
+        "parzen_log_density shapes, 36 tpe_score shapes (C up to 256, "
+        f"Ng 32 / Nb 8192), {len(PARZEN_EDGE)} edge cases")
 
-    # Matérn: K(X, X) and K(cands, X) at the GP cap, plus ragged
-    err = 0.0
-    for i, (a, b, d) in enumerate([(512, 512, 5), (256, 512, 5),
-                                   (1024, 1024, 5), (100, 37, 5),
-                                   (100, 37, 1), (100, 37, 11)]):
-        xa_, xb_, ls = matern_inputs(a, b, d, 100 + i)
-        out = K.matern52_cross(xa_, xb_, ls)
-        ref = K.matern52_cross_plain(xa_, xb_, ls)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ref, **TOL)
-        err = max(err, float((out - ref).abs().max()))
-    a, b, d = 512, 512, 5
-    args = matern_inputs(a, b, d, 99)
-    ms = event_times_ms(lambda: K.matern52_cross(*args))
-    plain_ms = event_times_ms(lambda: K.matern52_cross_plain(*args))
-    aa = torch.randn(a, d + 2, device="cuda")
-    nbytes = 4 * (a * d + b * d + d + a * b)
-    ops = a * b * (2 * (d + 2) + 10)  # FMAs of d², then the Matérn form
-    rows["matern52_cross"] = dict(
-        name="matern52_cross", route="cuda",
-        source="src/repro_torch/core/kernels/csrc/matern.cu",
-        replaces="src/repro/core/kernels/matern.py:50",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(nbytes, ops), library_ms=None)
-    device = kernel_device_us(lambda: matern_cuda(aa, aa),
-                              "matern52_kernel")
-    log(f"matern52_cross: 6 shapes agree (max |err| {err:.3e}); "
-        f"A=B={a} D={d}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"kernel device time {device}")
+    mixes = [(32, slice(0, 25)), (8192, slice(0, 4975))]   # a 5k history
+    x, xg, mg, bwg, xb, mb, bwb = parzen_inputs(64, 5, mixes, 1234)
+    work = parzen_work(64, 5, [(xg, mg, bwg), (xb, mb, bwb)])
+    fields = acq_timing(
+        "tpe_score at C=64, Ng 32 (25 valid), Nb 8192 (4975), D=5",
+        K.tpe_score, K.tpe_score_plain, (x, xg, mg, xb, mb, bwg, bwb),
+        "parzen_cluster_kernel<4>", *work, floor_ms)
+    acq_timing("parzen_log_density at C=64, N 8192 (4975 valid), D=5",
+               K.parzen_log_density, K.parzen_log_density_plain,
+               (x, xb, mb, bwb), "parzen_cluster_kernel<4>",
+               *parzen_work(64, 5, [(xb, mb, bwb)]), floor_ms)
+    return dict(name="tpe_score", route="cuda",
+                source="src/repro_torch/core/kernels/csrc/parzen.cu",
+                replaces="src/repro/core/kernels/parzen.py:88",
+                max_abs_err=agreed.err, **fields)
+
+
+def gp_masks(n, n_valid):
+    return torch.as_tensor(np.arange(n) < n_valid, dtype=torch.float32,
+                           device="cuda")
+
+
+def check_matern(K, floor_ms) -> dict:
+    agreed = Agreement()
+    shapes = [(512, 512, 5), (256, 512, 5), (1024, 1024, 5), (100, 37, 5),
+              (100, 37, 1), (100, 37, 11)]
+    for i, (a, b, d) in enumerate(shapes):
+        xa, xb, ls = matern_inputs(a, b, d, 100 + i)
+        agreed.add(K.matern52_cross(xa, xb, ls),
+                   K.matern52_cross_plain(xa, xb, ls),
+                   f"matern52_cross {a}x{b} D={d}")
+        # the GP's K over b padded rows (two thirds valid) and its Ks
+        cm = gp_masks(b, 2 * b // 3)
+        agreed.add(
+            K.matern52_masked(xb, xb, ls, cm, cm, jitter=1e-6 + 1e-3),
+            K.matern52_masked_plain(xb, xb, ls, cm, cm, jitter=1e-6 + 1e-3),
+            f"matern52_masked K {b}x{b} D={d}")
+        agreed.add(K.matern52_masked(xa, xb, ls, col_mask=cm),
+                   K.matern52_masked_plain(xa, xb, ls, col_mask=cm),
+                   f"matern52_masked Ks {a}x{b} D={d}")
+    log(f"matern kernel: {len(shapes)} shapes agree, unmasked, as the "
+        f"GP's K and as its Ks ({agreed})")
+
+    X, cands, ls = matern_inputs(512, 256, 5, 99)
+    mask = gp_masks(512, 512)
+    jitter = 1e-6 + 1e-3
+    fields = acq_timing(
+        "matern52_masked K at 512 x 512, D=5 (the GP cap)",
+        lambda X, m, ls: K.matern52_masked(X, X, ls, m, m, jitter=jitter),
+        lambda X, m, ls: K.matern52_masked_plain(X, X, ls, m, m,
+                                                 jitter=jitter),
+        (X, mask, ls), "matern52_tile_kernel",
+        *matern_work(512, 512, 5, 512), floor_ms)
+    acq_timing("matern52_masked Ks at 256 x 512, D=5",
+               lambda c, X, m, ls: K.matern52_masked(c, X, ls, col_mask=m),
+               lambda c, X, m, ls: K.matern52_masked_plain(c, X, ls,
+                                                           col_mask=m),
+               (X[:256], X, mask, ls), "matern52_tile_kernel",
+               *matern_work(256, 512, 5, 512), floor_ms)
+    acq_timing("matern52_cross at 512 x 512, D=5", K.matern52_cross,
+               K.matern52_cross_plain, (X, X, ls), "matern52_tile_kernel",
+               *matern_work(512, 512, 5, 0), floor_ms)
+    return dict(name="matern52_masked", route="cuda",
+                source="src/repro_torch/core/kernels/csrc/matern.cu",
+                replaces="src/repro/core/kernels/matern.py:50",
+                max_abs_err=agreed.err, **fields)
+
+
+def check_kernels(K) -> dict[str, dict]:
+    one = torch.zeros(1, device="cuda")
+    floor_ms = event_times_ms(lambda: one.add_(1))
+    log(f"launch floor: one 1-element PyTorch op takes {floor_ms:.4f} ms "
+        "per call (same per-call CUDA-event timing)")
+    rows = {"tpe_score": check_parzen(K, floor_ms),
+            "matern52_masked": check_matern(K, floor_ms)}
     log("library_ms: null for both; neither function is a single "
         "PyTorch call")
-    one = torch.zeros(1, device="cuda")
-    log(f"launch floor: one 1-element PyTorch op takes "
-        f"{event_times_ms(lambda: one.add_(1)):.4f} ms per call "
-        f"(same per-call CUDA-event timing)")
     return rows
 
 
-def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S
-          ) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S,
+          exps: int = 0) -> dict:
+    """The larger of the bytes at the HBM rate, the operations at
+    ``ops_per_s`` and the exponentials at the SFU rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = max(ops / ops_per_s, exps / SFU_OPS_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -332,8 +480,7 @@ def tpe_phase(core, K, tpe_mod, storage, tokens, space, token):
         key, _ = client.ensure_study({"name": "smoke-tpe",
                                       "properties": PROPS,
                                       "sampler": {"name": "tpe"}})
-        K.parzen_log_density.launches = 0
-        K.matern52_cross.launches = 0
+        reset_counts(K)
         t0 = time.perf_counter()
         fill(client, space, key, HISTORY, 256)
         log(f"tpe: seeded {HISTORY} completed trials in "
@@ -356,11 +503,12 @@ def tpe_phase(core, K, tpe_mod, storage, tokens, space, token):
                                 "value": objective(space, t["params"])}
                                for t in trials])
         busy = busy_share(client, space, key)
-        launches = K.parzen_log_density.launches
+        launches = K.tpe_score.launches
         check(launches > 0, "parzen kernel never launched")
-        check(launches >= 2 * rounds[0],
-              f"{launches} parzen launches for {rounds[0]} rounds")
-        check(K.matern52_cross.launches == 0, "matern launched by TPE")
+        check(launches == rounds[0],
+              f"{launches} tpe_score launches for {rounds[0]} rounds")
+        others = {n: c for n, c in counts(K).items() if n != "tpe_score"}
+        check(not any(others.values()), f"other launches by TPE: {others}")
         study = client.study(key)
         n_done = HISTORY + 50 + 160 + 20
         check(study["n_completed"] == n_done,
@@ -368,7 +516,7 @@ def tpe_phase(core, K, tpe_mod, storage, tokens, space, token):
         check(math.isfinite(study["best_value"]), "best value not finite")
         log(f"tpe: {study['n_completed']} completed, best "
             f"{study['best_value']:.6f}; {rounds[0]} proposal rounds, "
-            f"{launches} parzen launches")
+            f"{launches} tpe_score launches (one per round)")
         log(f"tpe ask  p50 {pct(ask_s, 50):.3f} ms  p99 "
             f"{pct(ask_s, 99):.3f} ms  (n=50, history {HISTORY})")
         log(f"tpe tell p50 {pct(tell_s, 50):.3f} ms  p99 "
@@ -397,12 +545,27 @@ def busy_share(client, space, key, n: int = 20) -> str:
     if not device:
         return "tpe: device busy share not measured (no device events)"
     busy_us = sum(us for _, us in device.values())
+    events = sum(c for c, _ in device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    every = sorted(device.items(), key=lambda kv: -kv[1][0])
     return (f"tpe: {n} profiled ask/tell pairs, wall {wall * 1e3:.1f} ms, "
             f"device busy {busy_us / 1e3:.3f} ms (share "
-            f"{busy_us / 1e6 / wall:.4f}); top device events: "
+            f"{busy_us / 1e6 / wall:.4f}), {events} device events "
+            f"({events / n:g} per ask/tell pair); top device events: "
             + "; ".join(f"{k[:40]} x{c} {us:.0f}us"
-                        for k, (c, us) in top))
+                        for k, (c, us) in top)
+            + "\ntpe: device events per ask/tell pair, by name: "
+            + "; ".join(f"{event_name(k)} x{c / n:g}" for k, (c, _) in every))
+
+
+def event_name(key: str) -> str:
+    """A device event's key cut short, with the functors and sort or
+    random-number kernels named past the cut, which tell PyTorch's
+    generic elementwise and reduce kernels apart."""
+    tags = re.findall(r"\w*(?:[Ff]unctor|[Ss]ort|[Rr]adix|multinomial|"
+                      r"normal|uniform|index|[Cc]at)\w*", key[40:])
+    tags = [t for t in dict.fromkeys(tags) if t != "func_wrapper_t"]
+    return key[:40] + (f" [{','.join(tags)[:70]}]" if tags else "")
 
 
 def check_tpe_scores(servers, key, tpe_mod):
@@ -426,23 +589,37 @@ def check_tpe_scores(servers, key, tpe_mod):
         f"{float((gpu.cpu() - cpu).abs().max()):.3e}")
 
 
-def gp_phase(core, K, storage, tokens, space, token):
+def gp_phase(core, K, gp_mod, storage, tokens, space, token):
     servers, runner = start_service(core, storage, tokens)
+    evals = [0]
+    gp_ei = gp_mod._gp_ei
+
+    def counted(*args, **kwargs):
+        evals[0] += 1
+        return gp_ei(*args, **kwargs)
+
+    gp_mod._gp_ei = counted
     try:
         client = core.Client(core.HttpTransport(runner.host, runner.port),
                              token)
         key, _ = client.ensure_study({"name": "smoke-gp",
                                       "properties": PROPS,
                                       "sampler": {"name": "gp"}})
-        K.parzen_log_density.launches = 0
-        K.matern52_cross.launches = 0
+        reset_counts(K)
         t0 = time.perf_counter()
-        fill(client, space, key, GP_HISTORY, 64)
-        log(f"gp: seeded {GP_HISTORY} completed trials in "
+        fill(client, space, key, GP_HISTORY - 20, 64)
+        log(f"gp: seeded {GP_HISTORY - 20} completed trials in "
             f"{time.perf_counter() - t0:.2f} s")
+        near_s = []
+        for _ in range(20):            # 492..511 observations: K 512 x 512
+            t0 = time.perf_counter()
+            trial = client.ask(key)
+            near_s.append(time.perf_counter() - t0)
+            check(in_space(space, trial["params"]), "gp ask")
+            client.tell(trial["uid"], objective(space, trial["params"]))
         ask_s = []
         trials = []
-        for _ in range(4):
+        for _ in range(4):              # at the cap; pending rows pad to 1024
             t0 = time.perf_counter()
             trials.append(client.ask(key))
             ask_s.append(time.perf_counter() - t0)
@@ -450,18 +627,42 @@ def gp_phase(core, K, storage, tokens, space, token):
         client.tell_batch([{"trial_uid": t["uid"],
                             "value": objective(space, t["params"])}
                            for t in trials])
-        launches = K.matern52_cross.launches
+        launches = K.matern52_masked.launches
         check(launches > 0, "matern kernel never launched")
+        check(launches == 2 * evals[0],
+              f"{launches} matern launches for {evals[0]} EI evaluations")
+        others = {n: c for n, c in counts(K).items()
+                  if n != "matern52_masked"}
+        check(not any(others.values()), f"other launches by GP: {others}")
         study = client.study(key)
         check(math.isfinite(study["best_value"]), "gp best not finite")
         log(f"gp: {study['n_completed']} completed, best "
-            f"{study['best_value']:.6f}; {launches} matern launches; ask "
-            f"at the cap p50 {pct(ask_s, 50):.3f} ms (n=4)")
+            f"{study['best_value']:.6f}; {evals[0]} EI evaluations, "
+            f"{launches} matern launches (K and Ks, one each)")
+        log(f"gp ask at 492-511 observations p50 {pct(near_s, 50):.3f} ms "
+            f" p99 {pct(near_s, 99):.3f} ms (n=20, K 512 x 512)")
+        log(f"gp ask at the cap p50 {pct(ask_s, 50):.3f} ms  max "
+            f"{pct(ask_s, 100):.3f} ms (n=4; the first at 512 rows, then "
+            "pending rows pad K to 1024)")
     finally:
+        gp_mod._gp_ei = gp_ei
         runner.stop()
         for s in servers:
             s.close()
     return launches
+
+
+ACQ_OPS = ("tpe_score", "parzen_log_density", "matern52_masked",
+           "matern52_cross")
+
+
+def counts(K) -> dict[str, int]:
+    return {n: getattr(K, n).launches for n in ACQ_OPS}
+
+
+def reset_counts(K) -> None:
+    for n in ACQ_OPS:
+        getattr(K, n).launches = 0
 
 
 def speculative_phase(core, K, storage, tokens, space, token, key):
@@ -484,7 +685,7 @@ def speculative_phase(core, K, storage, tokens, space, token, key):
             errors.append(e)
 
     try:
-        K.parzen_log_density.launches = 0
+        reset_counts(K)
         threads = [threading.Thread(target=worker, args=(i,))
                    for i in range(FLEET)]
         t0 = time.perf_counter()
@@ -501,11 +702,11 @@ def speculative_phase(core, K, storage, tokens, space, token, key):
         misses = sum(s["misses"] for s in stats)
         rounds = sum(s["rounds"] for s in stats)
         check(sum(s["errors"] for s in stats) == 0, "precompute errors")
-        check(K.parzen_log_density.launches > 0, "no parzen launches")
+        check(K.tpe_score.launches > 0, "no tpe_score launches")
         rate = hits / max(1, hits + misses)
         log(f"speculative: {FLEET} threads, {sum(counts)} ask/tell pairs "
             f"in {wall:.2f} s, {rounds} precompute rounds, queue_hit_rate "
-            f"{rate:.4f}, {K.parzen_log_density.launches} parzen launches")
+            f"{rate:.4f}, {K.tpe_score.launches} tpe_score launches")
     finally:
         runner.stop()
         for s in servers:
@@ -1094,6 +1295,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as core
     from repro_torch.core import kernels as K
+    from repro_torch.core.samplers import gp as gp_mod
     from repro_torch.core.samplers import tpe as tpe_mod
     from repro_torch import models as M
     from repro_torch import serve as E
@@ -1128,21 +1330,20 @@ def main() -> int:
             token = tokens.issue("chip-smoke")
             key, parzen_launches = tpe_phase(core, K, tpe_mod, storage,
                                              tokens, space, token)
-            matern_launches = gp_phase(core, K, storage, tokens, space,
-                                       token)
+            matern_launches = gp_phase(core, K, gp_mod, storage, tokens,
+                                       space, token)
             speculative_phase(core, K, storage, tokens, space, token, key)
         finally:
             storage.close()
-    rows["parzen_log_density"]["launches"] = parzen_launches
-    rows["matern52_cross"]["launches"] = matern_launches
+    rows["tpe_score"]["launches"] = parzen_launches
+    rows["matern52_masked"]["launches"] = matern_launches
 
     t0 = lap("phases 2-5", t0)
     rows["flash_attention"] = check_flash(FA)
     t0 = lap("phase 6", t0)
     model_parity(M, T, E)
     t0 = lap("phase 7", t0)
-    kernels = {"parzen_log_density": K.parzen_log_density,
-               "matern52_cross": K.matern52_cross,
+    kernels = {**{n: getattr(K, n) for n in ACQ_OPS},
                "flash_attention": FA.flash_attention, "ssd": SSD.ssd,
                "wkv6": WKV.wkv6}
     dense = serve_phase(M, T, E, kernels, "deepseek-7b",

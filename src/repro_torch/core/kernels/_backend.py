@@ -121,16 +121,12 @@ def build_all() -> list[str]:
     return stale
 
 
-# the two acquisition kernels: (in0, in1, out, rows0, rows1, k, stream)
-MATRIX_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
-                   + (ctypes.c_void_p,))
-
-
 def load(name: str, argtypes: tuple):
     """The C entry point ``name`` of ``csrc/<name>.cu``, built if stale.
     ``argtypes``: ``ctypes.c_void_p`` for each pointer and the stream
     (a plain int would cut a pointer to 32 bits), ``ctypes.c_int`` or
-    ``ctypes.c_int64`` for each integer, in the entry point's order."""
+    ``ctypes.c_int64`` for each integer, ``ctypes.c_float`` for a float,
+    in the entry point's order."""
     fn = _fns.get(name)
     if fn is None:
         with _lock:
@@ -155,28 +151,6 @@ def call(name: str, argtypes: tuple, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
-def launch(name: str, in0: torch.Tensor, in1: torch.Tensor,
-           out: torch.Tensor) -> None:
-    """Launch acquisition kernel ``name`` (``MATRIX_ARGTYPES``) on the
-    current stream of ``out``'s device."""
-    call(name, MATRIX_ARGTYPES, out.device, in0.data_ptr(), in1.data_ptr(),
-         out.data_ptr(), in0.shape[0], in1.shape[0], in0.shape[1])
-
-
-def check_cuda_operand(t: torch.Tensor, name: str, ndim: int) -> None:
-    """Raise unless ``t`` is what the CUDA kernels take: a contiguous
-    float32 tensor of rank ``ndim`` on a CUDA device."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def aligned_rows(t: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ posterior in PyTorch on the sampler's device, EI acquisition maximized
 over quasi-random candidates.
 
 The covariance matrices go through ``repro_torch.core.kernels.
-matern52_cross`` (a CUDA kernel on the card, its plain matmul-form
-version on the CPU — no (A, B, D) pairwise-difference intermediate);
+matern52_masked`` (one CUDA kernel launch each for K and Ks on the card,
+masks and jitter diagonal included; its plain matmul-form version on the
+CPU — no (A, B, D) pairwise-difference intermediate);
 the Cholesky factor and the triangular solves are ``torch.linalg`` library
 calls, as they were XLA library calls in the reference.  On the service
 ask path the padded (X, y, mask) buffers come straight from the
@@ -21,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels import matern52_cross, resolve_device
+from ..kernels import matern52_masked, resolve_device
 from ..obs_cache import check_liar
 from ..obs_cache import liar_value as _liar_value
 from ..obs_cache import pad_pow2 as _pad_pow2
@@ -39,15 +40,12 @@ def _gp_ei(X: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     var0 = ((y - mu0) ** 2 * mask).sum() / n + 1e-12
     yn = (y - mu0) / torch.sqrt(var0)
 
-    K = matern52_cross(X, X, ls)
-    K = torch.where(mask[:, None] * mask[None, :] > 0, K, 0.0)
-    # unit diag for padded rows
-    diag = torch.where(mask > 0, 1e-6 + 1e-3, 1.0)
-    K = K + torch.diag(diag)
+    # padded rows and columns masked out, unit diag for padded rows
+    K = matern52_masked(X, X, ls, mask, mask, jitter=1e-6 + 1e-3)
     L = torch.linalg.cholesky(K)
     alpha = torch.cholesky_solve((yn * mask)[:, None], L)[:, 0]
 
-    Ks = matern52_cross(cands, X, ls) * mask[None, :]
+    Ks = matern52_masked(cands, X, ls, col_mask=mask)
     mu = Ks @ alpha
     v = torch.linalg.solve_triangular(L, Ks.T, upper=False)
     var = torch.clamp(1.0 - (v ** 2).sum(0), min=1e-9)

@@ -3,10 +3,12 @@ default sampler the paper's reference implementation relies on.
 
 The surrogate math runs in PyTorch on the sampler's device: trial
 histories are padded to power-of-two lengths and cast to float32, and
-the Parzen mixture scores go through
-``repro_torch.core.kernels.parzen_log_density`` — a CUDA kernel (online
-logsumexp over the observations, no (C, N) or (C, N, D) intermediate)
-on the card, its plain matmul-form version on the CPU.
+a proposal round's acquisition scores go through
+``repro_torch.core.kernels.tpe_score`` — one CUDA kernel launch on the
+card that scores both Parzen mixtures from the raw split buffers
+(online logsumexp over the observations, no (C, N) or (C, N, D)
+intermediate), and two plain matmul-form ``parzen_log_density`` calls
+on the CPU.
 
 On the service ask path the observation matrix comes from the per-study
 ``ObservationCache`` (``cache=`` kwarg): history featurization is an O(1)
@@ -26,7 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels import parzen_log_density, resolve_device
+from ..kernels import resolve_device, tpe_score
 from ..obs_cache import check_liar, liar_value
 from ..obs_cache import pad_pow2 as _pad_pow2
 from ..space import SearchSpace
@@ -71,25 +73,9 @@ def _tpe_candidates(xg: torch.Tensor, mg: torch.Tensor, xb: torch.Tensor,
     return torch.where(take_l, from_l, uniform), bw, bw_b
 
 
-def _log_parzen(x: torch.Tensor, obs: torch.Tensor, mask: torch.Tensor,
-                bws: torch.Tensor) -> torch.Tensor:
-    """Mixture log-density (the kernel) plus the uniform-prior component
-    (a wide Gaussian at the cube center with weight 1, Optuna's
-    ``prior_weight``): without it the l/g ratio over-exploits the
-    incumbent cluster and TPE degenerates to local search."""
-    logk = parzen_log_density(x, obs, mask, bws)
-    zp = x - 0.5
-    logp = (-0.5 * zp * zp - math.log(math.sqrt(2 * math.pi))).sum(-1)
-    n = torch.clamp(mask.sum(), min=1.0)
-    return torch.logaddexp(logk, logp) - torch.log(n + 1.0)
-
-
-def _tpe_score(cands: torch.Tensor, xg: torch.Tensor, mg: torch.Tensor,
-               xb: torch.Tensor, mb: torch.Tensor, bw: torch.Tensor,
-               bw_b: torch.Tensor) -> torch.Tensor:
-    """(C,) acquisition  log l(x) - log g(x)  of the candidates."""
-    return (_log_parzen(cands, xg, mg, bw)
-            - _log_parzen(cands, xb, mb, bw_b))
+# (C,) acquisition  log l(x) - log g(x)  of a round's candidates, each
+# side with the uniform-prior component (Optuna's ``prior_weight``)
+_tpe_score = tpe_score
 
 
 def _tpe_propose(xg: torch.Tensor, mg: torch.Tensor, xb: torch.Tensor,

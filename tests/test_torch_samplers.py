@@ -9,6 +9,10 @@
   than the kernels' 2e-4 because the float32 Cholesky solves go through
   two different libraries — and ``GPSampler.suggest`` picks the same
   point (its candidates are numpy Halton points on both sides).
+* The fused TPE score's plain version against the reference's two
+  ``log_parzen`` sides (its Parzen op, ``jnp`` and Pallas in interpret
+  mode, plus the prior), and the masked Matérn op's plain version
+  against the reference's K and Ks, at 2e-4.
 * The numpy samplers give identical proposals.
 * A seeded TPE study's regret is no worse than twice the reference's
   (or 0.05).
@@ -25,6 +29,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from repro.core.kernels import matern52_cross as ref_matern  # noqa: E402
+from repro.core.kernels import parzen_log_density as ref_parzen  # noqa: E402
 from repro.core.samplers import make_sampler as ref_make_sampler  # noqa: E402
 from repro.core.samplers import gp as ref_gp  # noqa: E402
 from repro.core.samplers import tpe as ref_tpe  # noqa: E402
@@ -32,6 +38,8 @@ from repro.core.space import SearchSpace as RefSpace  # noqa: E402
 from repro.core.types import Direction as RefDirection  # noqa: E402
 from repro.core.types import Trial as RefTrial  # noqa: E402
 from repro.core.types import TrialState as RefState  # noqa: E402
+from repro_torch.core.kernels import matern52_masked_plain  # noqa: E402
+from repro_torch.core.kernels import tpe_score_plain  # noqa: E402
 from repro_torch.core.samplers import make_sampler  # noqa: E402
 from repro_torch.core.samplers import gp as port_gp  # noqa: E402
 from repro_torch.core.samplers import tpe as port_tpe  # noqa: E402
@@ -84,6 +92,43 @@ def test_tpe_score_orders_reference_proposals(ng, nb, d, n_good, n_bad,
     assert np.all(np.diff(score) <= 2e-4), np.diff(score).max()
 
 
+def _ref_log_parzen(x, obs, mask, bw, backend):
+    """The reference's ``log_parzen`` (``repro.core.samplers.tpe``): its
+    Parzen op on ``backend`` plus the uniform prior, in jnp."""
+    logk = ref_parzen(x, obs, mask, bw, backend=backend)
+    zp = x - 0.5
+    logp = (-0.5 * zp * zp - jnp.log(math.sqrt(2 * math.pi))).sum(-1)
+    n = jnp.maximum(mask.sum(), 1.0)
+    return jnp.logaddexp(logk, logp) - jnp.log(n + 1.0)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("ng,nb,d,n_good,n_bad,pool", [
+    (8, 16, 2, 3, 12, 64),
+    (32, 64, 5, 25, 60, 64),
+    (32, 8192, 5, 25, 4975, 128),
+])
+def test_tpe_score_plain_matches_reference(backend, ng, nb, d, n_good, n_bad,
+                                           pool):
+    """The fused op's plain version (the CPU route of ``_tpe_score``)
+    against the reference's two ``log_parzen`` sides; 2e-4."""
+    bufs = _split_buffers(ng, nb, d, n_good, n_bad)
+    rng = np.random.default_rng(pool)
+    cands = rng.uniform(size=(pool, d)).astype(np.float32)
+    bw = rng.uniform(0.05, 0.5, size=d).astype(np.float32)
+    bw_b = rng.uniform(0.08, 0.7, size=d).astype(np.float32)
+    xg, mg, xb, mb = map(jnp.asarray, bufs)
+    ref = (_ref_log_parzen(jnp.asarray(cands), xg, mg, jnp.asarray(bw),
+                           backend)
+           - _ref_log_parzen(jnp.asarray(cands), xb, mb, jnp.asarray(bw_b),
+                             backend))
+    out = tpe_score_plain(*map(torch.from_numpy,
+                               (cands, *bufs, bw, bw_b)))
+    assert out.dtype == torch.float32 and out.shape == (pool,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
 def test_tpe_candidates_shape_and_mix():
     xg, mg, xb, mb = map(torch.from_numpy, _split_buffers(8, 16, 3, 3, 12))
     gen = torch.Generator().manual_seed(3)
@@ -129,6 +174,33 @@ def test_gp_ei_matches_reference(n_obs, cap, d, n_cands):
     out = port_gp._gp_ei(*map(torch.from_numpy, inputs))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_obs,cap,d,n_cands", [
+    (8, 16, 2, 64), (40, 64, 5, 256), (300, 512, 5, 256)])
+def test_matern_masked_plain_matches_reference_gp_covariances(n_obs, cap, d,
+                                                              n_cands):
+    """K and Ks as the reference's ``_gp_ei`` forms them (its Matérn op,
+    then the masks and the jitter diagonal in jnp) against the masked
+    op's plain version; 2e-4, the kernels' tolerance."""
+    X, _, mask, cands, ls = _gp_inputs(n_obs, cap, d, n_cands)
+    Xj, mj, cj, lj = map(jnp.asarray, (X, mask, cands, ls))
+    K = ref_matern(Xj, Xj, lj)
+    K = jnp.where(mj[:, None] * mj[None, :] > 0, K, 0.0)
+    K = K + jnp.diag(jnp.where(mj > 0, 1e-6 + 1e-3, 1.0))
+    Ks = ref_matern(cj, Xj, lj) * mj[None, :]
+    Xt, mt, ct, lt = map(torch.from_numpy, (X, mask, cands, ls))
+    K_out = matern52_masked_plain(Xt, Xt, lt, mt, mt, jitter=1e-6 + 1e-3)
+    Ks_out = matern52_masked_plain(ct, Xt, lt, col_mask=mt)
+    np.testing.assert_allclose(K_out.numpy(), np.asarray(K), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(Ks_out.numpy(), np.asarray(Ks), rtol=2e-4,
+                               atol=2e-4)
+    # padded rows and columns are exactly 0 off the diagonal, 1 on it
+    pad = mask == 0
+    assert (K_out.numpy()[pad][:, ~pad] == 0).all()
+    assert (np.diag(K_out.numpy())[pad] == 1.0).all()
+    assert (Ks_out.numpy()[:, pad] == 0).all()
 
 
 def _history(trial_cls, state, space, n, seed=0):
