@@ -62,10 +62,29 @@ from import, and exits non-zero on any failure:
     size in bf16 as phase 8 serves deepseek-7b: 38 SSD and 6 flash
     launches (the Hopper kernel at hd 64) per zamba2 prefill, 32 WKV6
     launches per rwkv6 prefill; the profiled prefills must run the
-    tensor-core SSD and WKV6 kernels by their profiler symbols.
+    tensor-core SSD and WKV6 kernels by their profiler symbols;
+12. trains deepseek-7b at full width with its depth cut from 30 to 8
+    layers (2.46e9 parameters: fp32 masters and AdamW moments, a bf16
+    copy and bf16 gradients take ~44 GB; all 30 layers would need ~124
+    GB): bf16 compute, remat on, ref attention, 4 x 2048 tokens of the
+    synthetic stream, one warm-up and 4 timed steps at lr 3e-4 (ms a
+    step, tokens/s, peak memory, model-FLOPs share), a profiled step
+    (busy share, largest device entries), AdamW alone, then the same
+    batch unsplit and in 2 microbatches (losses within 1e-2); finite and
+    falling losses, no kernel of this repo launched (none has a
+    backward);
+13. the HPO loop of ``benchmarks/bench_hpo_train.py`` on the card: a
+    TPE study (``HopaasServer(device="cuda")``, ``DirectTransport``) over
+    lr and weight decay with the median pruner, each trial
+    ``hopaas_objective`` on deepseek-7b's smoke config (20 steps); 12
+    trials and on until two were proposed past TPE's 10 startup trials
+    (pruned trials are no observations), so ``tpe_score`` launches;
+    every trial told, best loss <= median; then a checkpoint at step 10
+    restored by a fresh ``Trainer`` ends where an uninterrupted run does
+    (1e-4).
 
-The launch counters are set to 0 just before each of phases 3-5, 8 and
-11 (each model of it) and read just after it.  The last three lines are
+The launch counters are set to 0 just before each of phases 3-5, 8, 11
+(each model of it), 12 and 13 and read just after it.  The last three lines are
 the kernels' JSON record, the card's name and power limit from
 nvidia-smi, and the result line.
 """
@@ -1276,6 +1295,257 @@ def ssm_parity(M, T, E) -> None:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# phases 12 and 13: training on the card
+# --------------------------------------------------------------------- #
+TRAIN_LAYERS = 8                  # deepseek-7b's 30 do not train on 80 GB
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+HELD_OUT = 1000                   # index of a batch no step trains on
+HPO_TRIALS, HPO_MAX_TRIALS = 12, 40
+
+
+def train_phase(M, O, D, TR, kernels: dict) -> None:
+    """deepseek-7b at full width, ``TRAIN_LAYERS`` layers, bf16 compute,
+    remat on, ``attn_impl="ref"`` (the kernels have no backward): one
+    warm-up step, 4 timed steps and a profiled one on 4 x 2048 tokens of
+    the synthetic stream, AdamW at lr 3e-4, with the loss of a held-out
+    batch before and after.  Then one step at lr 0 (the parameters stay)
+    and one with 2 microbatches on the same batch."""
+    full = M.get_config("deepseek-7b")
+    check((full.n_layers, full.d_model) == FULL_SIZE["deepseek-7b"],
+          "not full size")
+    cfg = full.replace(n_layers=TRAIN_LAYERS)
+    check(cfg.remat and cfg.attn_impl == "ref" and cfg.dtype == BF16,
+          "training config")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = O.AdamWConfig(lr=3e-4)
+    t0 = time.perf_counter()
+    state = TR.init_train_state(cfg, opt, seed=0, device="cuda").tree()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in M.registry.leaves(state["params"]))
+    log(f"train: deepseek-7b at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut {full.n_layers} -> {cfg.n_layers} "
+        f"layers: {n_params} parameters; fp32 masters and AdamW moments "
+        f"in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    data = D.SyntheticLMDataset(D.DataConfig(global_batch=TRAIN_BATCH,
+                                             seq_len=TRAIN_SEQ), cfg)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in data[i].items()}
+
+    held = batch(HELD_OUT)
+
+    def held_out_loss():        # one batch that no step trains on
+        with torch.no_grad():
+            params = TR.step.cast_weights(cfg, state["params"])
+            return float(M.transformer.loss_fn(params, cfg, held)[0])
+
+    step = TR.make_train_step(cfg, opt)
+    for fn in kernels.values():
+        fn.launches = 0
+    held_before = held_out_loss()
+    losses, times = [], []
+    for i in range(5):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"train step {i + 1}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.6f}, {times[-1] * 1e3:.2f} ms")
+    # each step's loss is on another batch, which moves it by ~0.02 here;
+    # the held-out batch's loss before and after has no such noise
+    held_after = held_out_loss()
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[4] < losses[0], f"loss did not fall: {losses}")
+    check(held_after < held_before,
+          f"held-out loss {held_before} -> {held_after}")
+    log(f"train: held-out batch {HELD_OUT}: loss {held_before:.6f} before "
+        f"step 1, {held_after:.6f} after step 5 "
+        f"({held_after - held_before:+.6f})")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+        f"{step_s * 1e3:.2f} ms a step (median of 4 after a warm-up: "
+        f"{[round(t * 1e3, 2) for t in times[1:]]}), {tokens / step_s:.1f} "
+        f"tokens/s; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak} B, max_memory_allocated); model-FLOPs share of the bf16 "
+        f"peak (6 N tokens / (step time x 989e12)): "
+        f"{6 * n_params * tokens / (step_s * BF16_OPS_PER_S):.4f}")
+
+    b = batch(5)
+    out = {}
+
+    def one_step():
+        out["state"], out["metrics"] = step(state, b)
+
+    wall, device = profiled(one_step)
+    state = out["state"]
+    check(math.isfinite(float(out["metrics"]["loss"])), "profiled loss")
+    log(breakdown("train step (profiled)", wall, device))
+    if device:
+        top = sorted(device.items(), key=lambda kv: -kv[1][1])[:5]
+        log("train step: five largest device-time entries: " + "; ".join(
+            f"{event_name(k)} x{c} {us / 1e3:.3f} ms" for k, (c, us) in top))
+        log("train step: device time by kind: " + "; ".join(
+            f"{kind} x{c} {us / 1e3:.2f} ms"
+            for kind, (c, us) in device_kinds(device)))
+
+    def zeros(tree):            # the train step's gradient dtypes
+        return {k: zeros(v) if isinstance(v, dict) else torch.zeros_like(
+            v, dtype=BF16 if v.dim() >= 2 else FP32) for k, v in tree.items()}
+
+    grads = zeros(state["params"])
+    adamw_ms = event_times_ms(
+        lambda: O.adamw_update(grads, state["opt_state"], state["params"],
+                               O.AdamWConfig(lr=0.0)), warmup=1, reps=3)
+    del grads
+    log(f"train: adamw_update alone on the {n_params}-parameter state: "
+        f"{adamw_ms:.2f} ms (CUDA events, median of 3, eager)")
+
+    # the loss of any split is the unsplit loss, so the accumulated
+    # gradient's norm is what tests the split and the accumulation
+    b = batch(7)
+    state, m1 = TR.make_train_step(cfg, O.AdamWConfig(lr=0.0))(state, b)
+    state, m2 = TR.make_train_step(cfg, opt, n_microbatches=2)(state, b)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    g1, g2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+    check(math.isfinite(l2) and abs(l2 - l1) <= 1e-2 * abs(l1),
+          f"microbatches=2 loss {l2} against {l1}")
+    check(math.isfinite(g2) and abs(g2 - g1) <= 1e-3 * abs(g1),
+          f"microbatches=2 grad norm {g2} against {g1}")
+    log(f"train: the same batch unsplit (lr 0) and in 2 microbatches: "
+        f"loss {l1:.6f} / {l2:.6f} (relative {abs(l2 - l1) / abs(l1):.3e}, "
+        f"tolerance 1e-2), grad norm {g1:.6f} / {g2:.6f} (relative "
+        f"{abs(g2 - g1) / abs(g1):.3e}, tolerance 1e-3); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the "
+        "phase")
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    check(not any(counts.values()), f"kernel launches in training {counts}")
+    del state, b, out
+    torch.cuda.empty_cache()
+
+
+def device_kinds(device: dict) -> list[tuple[str, tuple[int, float]]]:
+    """Device events summed by kind (GEMM, softmax, elementwise, casts
+    and copies, reductions, indexing), largest first."""
+    kinds: dict[str, list] = {}
+    for key, (c, us) in device.items():
+        k = key.lower()
+        kind = ("gemm" if re.search(r"nvjet|gemm|cutlass|xmma", k) else
+                "softmax" if "softmax" in k else
+                "reduce" if "reduce" in k else
+                "index" if re.search(r"index|scatter|gather", k) else
+                "cast/copy" if re.search(r"memcpy|memset|copy", k) else
+                "elementwise" if "elementwise" in k else "other")
+        acc = kinds.setdefault(kind, [0, 0.0])
+        acc[0] += c
+        acc[1] += us
+    return sorted(((k, tuple(v)) for k, v in kinds.items()),
+                  key=lambda kv: -kv[1][1])
+
+
+def hpo_phase(core, K, M, O, D, TR, kernels: dict) -> int:
+    """The HPO loop of ``benchmarks/bench_hpo_train.py`` on the card: a
+    TPE study over (lr, weight_decay) with the median pruner, each trial
+    ``hopaas_objective`` on deepseek-7b's smoke config (20 steps, 8 x 32
+    tokens).  Pruned trials are no observations for TPE, so the study
+    runs ``HPO_TRIALS`` trials and then on until two trials have been
+    proposed past TPE's 10 startup trials.  Then a checkpoint round trip,
+    whose uninterrupted run must learn.
+    Returns the ``tpe_score`` launches of the loop."""
+    t_phase = time.perf_counter()
+    cfg = M.get_config("deepseek-7b", smoke=True)
+    objective = TR.hopaas_objective(cfg, total_steps=20, global_batch=8,
+                                    seq_len=32, report_every=10,
+                                    device="cuda")
+    server = core.HopaasServer(tokens=core.TokenManager(), seed=3,
+                               device="cuda")
+    try:
+        client = core.Client(core.DirectTransport(server),
+                             server.tokens.issue("chip-smoke-hpo"))
+        study = core.ClientStudy(
+            name="hpo-train",
+            properties={"lr": core.suggestions.loguniform(1e-5, 3e-2),
+                        "weight_decay": core.suggestions.loguniform(1e-4,
+                                                                    0.3)},
+            sampler={"name": "tpe"},
+            pruner={"name": "median", "n_warmup_steps": 10}, client=client)
+        for fn in kernels.values():
+            fn.launches = 0
+        losses, n_pruned, tpe_asks, best = [], 0, 0, (math.inf, None)
+        n = 0
+        while n < HPO_TRIALS or tpe_asks < 2:
+            check(n < HPO_MAX_TRIALS, f"TPE left startup in no {n} trials")
+            before = K.tpe_score.launches
+            trial = study.ask()
+            tpe_asks += K.tpe_score.launches > before
+            value = objective(trial.params, trial.should_prune)
+            check(math.isfinite(value), f"trial {n}: loss {value}")
+            study.tell(trial, value=value,
+                       state="pruned" if trial.pruned else None)
+            n += 1
+            if trial.pruned:
+                n_pruned += 1
+                continue
+            losses.append(value)
+            best = min(best, (value, trial.params["lr"]))
+        summary = client.study(study.study_key)
+        told = summary["n_completed"] + summary.get("n_pruned", 0)
+        check(told == n, f"{told} trials told of {n}: {summary}")
+        launches = K.tpe_score.launches
+        check(launches >= 1, "tpe_score never launched in the HPO loop")
+        counts = {k: fn.launches for k, fn in kernels.items()
+                  if k != "tpe_score"}
+        check(not any(counts.values()), f"other launches {counts}")
+        median = float(np.median(losses))
+        check(best[0] <= median, f"best {best[0]} above median {median}")
+    finally:
+        server.close()
+    log(f"hpo: {n} trials ({n - n_pruned} completed, {n_pruned} pruned), "
+        f"{tpe_asks} proposed by TPE past startup with {launches} "
+        f"tpe_score launches; median loss {median:.6f}, best loss "
+        f"{best[0]:.6f} (lr {best[1]:.6g}); "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as root:
+        def trainer(steps, ckpt_dir=None):
+            return TR.Trainer(
+                cfg, O.AdamWConfig(lr=3e-3, weight_decay=0.0),
+                D.DataConfig(global_batch=8, seq_len=32),
+                TR.TrainerConfig(total_steps=steps, checkpoint_every=10,
+                                 checkpoint_dir=ckpt_dir), device="cuda")
+        whole = trainer(20).run()
+        first = trainer(10, root).run()
+        resumed = trainer(20, root).run()
+    check(first.steps_run == 10 and resumed.restored_from == 10
+          and resumed.steps_run == 10, "restart did not resume at 10")
+    # the smoke model learns: its last losses fall below ln(vocab), the
+    # loss of a uniform guess, from above it
+    late = float(np.mean(whole.losses[-5:]))
+    check(late < math.log(cfg.vocab_size) < whole.losses[0],
+          f"smoke losses {whole.losses} against ln V")
+    log(f"hpo: the uninterrupted 20 steps: loss {whole.losses[0]:.6f} at "
+        f"step 1, {late:.6f} over the last 5 (ln V "
+        f"{math.log(cfg.vocab_size):.6f})")
+    rel = abs(resumed.final_loss - whole.final_loss) / abs(whole.final_loss)
+    check(rel <= 1e-4, f"resumed loss {resumed.final_loss} against "
+          f"{whole.final_loss}")
+    log(f"hpo: checkpoint at step 10, restored in a fresh Trainer: final "
+        f"loss {resumed.final_loss:.6f} against {whole.final_loss:.6f} "
+        f"uninterrupted (relative {rel:.3e}, tolerance 1e-4); phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def breakdown(label: str, wall: float, device: dict) -> str:
     if not device:
         return f"{label}: device time not measured (no device events)"
@@ -1364,7 +1634,16 @@ def main() -> int:
     rwkv = serve_phase(M, T, E, kernels, "rwkv6-7b", {"wkv6": 32},
                        {WKV.ops.kernel_symbol(BF16, 64): 32},
                        ssm_impl="pallas")
-    lap("phase 11", t0)
+    t0 = lap("phase 11", t0)
+    from repro_torch import data as D
+    from repro_torch import optim as O
+    from repro_torch import train as TR
+    train_phase(M, O, D, TR, kernels)
+    t0 = lap("phase 12", t0)
+    hpo_launches = hpo_phase(core, K, M, O, D, TR, kernels)
+    lap("phase 13", t0)
+    log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
+        f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's and zamba2's
     rows["flash_attention"]["launches"] = (dense["flash_attention"]
                                            + hybrid["flash_attention"])

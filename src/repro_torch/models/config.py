@@ -83,8 +83,7 @@ class ModelConfig:
     #                                sharded over the context mesh axis;
     #                                for archs whose head counts cannot
     #                                shard over the model axis)
-    remat: bool = True             # checkpoint each layer in train_step
-    #                                (training is not ported yet)
+    remat: bool = True             # checkpoint each layer under autograd
     remat_policy: str = "nothing"  # nothing | dots (save projection/mlp dot
     #                                outputs: skips recomputing ~95% of layer
     #                                FLOPs in backward for ~L x 40MB HBM)

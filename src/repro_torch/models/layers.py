@@ -128,3 +128,17 @@ def init_embedding(mk: ParamInit, vocab: int, d_model: int, dtype: Any
 def init_lm_head(mk: ParamInit, d_model: int, vocab: int, dtype: Any
                  ) -> torch.Tensor:
     return mk((d_model, vocab), dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL in fp32.  logits (..., V); labels (...) int32 or
+    int64 (gathered as int64); ``mask`` (...) weights the tokens."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

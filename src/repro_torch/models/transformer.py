@@ -8,23 +8,30 @@ Covers, through ``cfg.block``:
                  ``shared_attn_period`` layers           [hybrid]
 
 Layers are stacked along a leading ``layers`` dim, as in the reference,
-and walked with a Python loop.  MoE and the audio and vision frontends
+and walked with a Python loop over one ``torch.unbind`` of each stacked
+leaf.  Under autograd each block is checkpointed when ``cfg.remat``
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="nothing"``
+keeps only the block's inputs, ``"dots"`` also keeps the outputs of the
+2-D projection and MLP products.  MoE and the audio and vision frontends
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..core.kernels import resolve_device
 from . import attention as attn_mod
 from . import mamba2, rwkv6
 from .config import ModelConfig
-from .layers import (ParamInit, init_embedding, init_lm_head, init_mlp,
-                     init_rmsnorm, mlp, rmsnorm)
+from .layers import (ParamInit, cross_entropy, init_embedding, init_lm_head,
+                     init_mlp, init_rmsnorm, mlp, rmsnorm)
 
-_UNPORTED = "not ported yet: ROADMAP Queue 1 item 2, slice"
+_UNPORTED = "not ported yet: ROADMAP Queue 1 item"
+MOE_AUX_COEF = 0.01
 BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
 
 
@@ -35,11 +42,11 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
     if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE is {_UNPORTED} 1 (MoE serving)")
+            f"{cfg.name}: MoE is {_UNPORTED} 3 (MoE)")
     if cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is {_UNPORTED} 5 "
-            "(frontends)")
+            f"{cfg.name}: the {cfg.frontend} frontend is {_UNPORTED} 4 "
+            "(the frontends)")
 
 
 # ===================================================================== #
@@ -118,6 +125,42 @@ def layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a tree stacked along its leading dim, from one
+    ``torch.unbind`` a leaf.  Under autograd its backward is one
+    ``stack`` a leaf, where indexing each layer (``layer``) would add a
+    zero tensor the size of the whole stack for every layer."""
+    cols = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    """Selective checkpoint of ``remat_policy="dots"``: keep the outputs
+    of the 2-D products (projections, MLP, as the reference's
+    ``dots_with_no_batch_dims_saveable``); recompute the rest, attention's
+    batched products included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` checkpointed per ``cfg.remat_policy`` when ``cfg.remat``
+    and autograd records (serving runs ``fn`` as it is)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy == "nothing":
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return lambda *args, **kw: ckpt.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=context_fn, **kw)
+
+
 # ===================================================================== #
 # forward
 # ===================================================================== #
@@ -146,21 +189,27 @@ def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     """Run all blocks (MoE is not ported, so there is no aux loss)."""
     check_ported(cfg)
+    attn_block = _remat(functools.partial(_attn_block, cfg=cfg,
+                                          positions=positions), cfg)
+    mamba_block = _remat(functools.partial(_mamba_block, cfg=cfg), cfg)
     if cfg.block == "attn":
-        for i in range(cfg.n_layers):
-            x = _attn_block(layer(params["blocks"], i), cfg, x, positions)
+        for p in unstack(params["blocks"], cfg.n_layers):
+            x = attn_block(p, x=x)
     elif cfg.block in ("rwkv6", "mamba2"):
-        fn = _rwkv_block if cfg.block == "rwkv6" else _mamba_block
-        for i in range(cfg.n_layers):
-            x = fn(layer(params["blocks"], i), cfg, x)
+        fn = (_remat(functools.partial(_rwkv_block, cfg=cfg), cfg)
+              if cfg.block == "rwkv6" else mamba_block)
+        for p in unstack(params["blocks"], cfg.n_layers):
+            x = fn(p, x=x)
     else:                                           # zamba2
         n_groups, period, tail = _zamba_split(cfg)
+        group_layers = unstack(params["mamba_groups"], n_groups * period)
         for g in range(n_groups):
-            for i in range(g * period, (g + 1) * period):
-                x = _mamba_block(layer(params["mamba_groups"], i), cfg, x)
-            x = _attn_block(params["shared"], cfg, x, positions)
-        for i in range(tail):
-            x = _mamba_block(layer(params["mamba_tail"], i), cfg, x)
+            for p in group_layers[g * period: (g + 1) * period]:
+                x = mamba_block(p, x=x)
+            x = attn_block(params["shared"], x=x)
+        if tail:
+            for p in unstack(params["mamba_tail"], tail):
+                x = mamba_block(p, x=x)
     return x
 
 
@@ -186,6 +235,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict
     x, positions = embed_inputs(params, cfg, batch)
     x = _stack(cfg, params, x, positions)
     return logits_fn(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """-> (loss, {"ce", "moe_aux"}): mean token cross-entropy in fp32
+    over ``batch["labels"]``, weighted by ``batch["loss_mask"]`` when
+    given; ``moe_aux`` is a zero tensor (MoE is not ported)."""
+    logits, aux = forward(params, cfg, batch)
+    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    loss = ce + MOE_AUX_COEF * aux
+    return loss, {"ce": ce, "moe_aux": aux}
 
 
 # ===================================================================== #
