@@ -81,12 +81,33 @@ from import, and exits non-zero on any failure:
     (pruned trials are no observations), so ``tpe_score`` launches;
     every trial told, best loss <= median; then a checkpoint at step 10
     restored by a fresh ``Trainer`` ends where an uninterrupted run does
-    (1e-4).
+    (1e-4);
+14. the multi-process shard fabric (after timing a fresh process's
+    imports, most of a worker's start: ``ShardFabric``, durable storage,
+    group fsync, ``device="cuda"``) at w = 1 (inline), 2 and 4 worker
+    processes: 8 TPE studies on the 5-parameter space told 1,000 trials
+    each, then 32 keep-alive client threads (4 a study) doing ask/tell
+    pairs for 8 s through the router (pairs/s, ask p50/p99, the owners
+    of the 8 studies, at least 3 at w = 4), and at w = 4 once more
+    through ``ShardedHttpTransport`` (no router hop) and a GP study;
+    every ask launches exactly one ``tpe_score`` in the process of the
+    worker that owns its study, and the GP's asks ``matern52_masked``
+    only in its owner, read from each worker's own health endpoint;
+    every worker that owns a study maps libcuda and the Parzen library
+    (the GP's owner also Matérn's) and no worker maps anything under a
+    ``jax`` or ``jaxlib`` directory (``/proc/<pid>/maps``); then a
+    failover: 2 workers with one semisync follower each (fsync always),
+    a TPE study past startup, 4 clients, SIGKILL of its leader
+    mid-campaign: the gap to the first pair started after the kill,
+    every acknowledged tell read back from the promoted leader, whose
+    asks launch ``tpe_score`` on the card, and a new follower attached.
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
-(each model of it), 12 and 13 and read just after it.  The last three lines are
-the kernels' JSON record, the card's name and power limit from
-nvidia-smi, and the result line.
+(each model of it), 12, 13 and 14 and read just after it (a fabric
+worker's counters are its own process's: they start at 0 with it and
+phase 14 reads them before and after each window).  The last three
+lines are the kernels' JSON record, the card's name and power limit
+from nvidia-smi, and the result line.
 """
 from __future__ import annotations
 
@@ -99,6 +120,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+import signal  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import threading  # noqa: E402
@@ -526,7 +548,8 @@ def tpe_phase(core, K, tpe_mod, storage, tokens, space, token):
         check(launches > 0, "parzen kernel never launched")
         check(launches == rounds[0],
               f"{launches} tpe_score launches for {rounds[0]} rounds")
-        others = {n: c for n, c in counts(K).items() if n != "tpe_score"}
+        others = {n: c for n, c in K.launch_counts().items()
+                  if n != "tpe_score"}
         check(not any(others.values()), f"other launches by TPE: {others}")
         study = client.study(key)
         n_done = HISTORY + 50 + 160 + 20
@@ -650,7 +673,7 @@ def gp_phase(core, K, gp_mod, storage, tokens, space, token):
         check(launches > 0, "matern kernel never launched")
         check(launches == 2 * evals[0],
               f"{launches} matern launches for {evals[0]} EI evaluations")
-        others = {n: c for n, c in counts(K).items()
+        others = {n: c for n, c in K.launch_counts().items()
                   if n != "matern52_masked"}
         check(not any(others.values()), f"other launches by GP: {others}")
         study = client.study(key)
@@ -673,10 +696,6 @@ def gp_phase(core, K, gp_mod, storage, tokens, space, token):
 
 ACQ_OPS = ("tpe_score", "parzen_log_density", "matern52_masked",
            "matern52_cross")
-
-
-def counts(K) -> dict[str, int]:
-    return {n: getattr(K, n).launches for n in ACQ_OPS}
 
 
 def reset_counts(K) -> None:
@@ -1546,6 +1565,390 @@ def hpo_phase(core, K, M, O, D, TR, kernels: dict) -> int:
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the multi-process shard fabric on the card
+# --------------------------------------------------------------------- #
+FABRIC_STUDIES = 8            # TPE studies, 4 client threads each
+FABRIC_HISTORY = 1000         # completed trials a study, told in bulk
+FABRIC_WINDOW_S = 8.0         # each timed window of ask/tell pairs
+FABRIC_CLIENTS = 4            # keep-alive client threads a study
+FAILOVER_HISTORY = 200
+SCOPE_LOCAL = {"X-Fabric-Scope": "local"}   # a worker's own health
+
+
+def fabric_spec(name: str, sampler: str) -> dict:
+    return {"name": name, "properties": PROPS, "sampler": {"name": sampler}}
+
+
+def worker_health(core, endpoint) -> dict:
+    """One worker's own health (its data port, scoped so that it does
+    not forward): device and this process's kernel launches."""
+    status, payload, _ = core.HttpTransport(*endpoint).request_full(
+        "GET", "/api/v2/health", headers=SCOPE_LOCAL)
+    check(status == 200, f"health of {endpoint}: {status} {payload}")
+    return payload
+
+
+def worker_launches(core, fab) -> dict[int, dict[str, int]]:
+    """Kernel launches of every leader, read from its own process."""
+    out = {}
+    for wid, endpoint in enumerate(fab.endpoints):
+        health = worker_health(core, endpoint)
+        check(health["device"]["type"] == "cuda",
+              f"worker {wid} computes on {health['device']}")
+        out[wid] = dict(health["device"]["kernel_launches"])
+    return out
+
+
+def worker_pids(fab) -> dict[int, int]:
+    """Leader pids by ring id (the parent itself when inline)."""
+    if fab.inline:
+        return {0: os.getpid()}
+    return {w["worker"]: w["pid"] for w in fab.health()["workers"]
+            if w.get("role") == "leader" and "error" not in w}
+
+
+def mapped(pid: int) -> set[str]:
+    with open(f"/proc/{pid}/maps") as f:
+        return {line.split()[-1] for line in f if "/" in line}
+
+
+def check_maps(pid: int, what: str, libs: tuple[str, ...]) -> str:
+    """``pid`` maps libcuda and each kernel library in ``libs``, and
+    nothing under a ``jax`` or ``jaxlib`` directory."""
+    from repro_torch.core.kernels import _backend
+    paths = mapped(pid)
+    jax = sorted(p for p in paths if {"jax", "jaxlib"} & set(Path(p).parts))
+    check(not jax, f"{what} (pid {pid}) maps JAX: {jax[:3]}")
+    cuda = sorted(p for p in paths if Path(p).name.startswith("libcuda.so"))
+    check(cuda, f"{what} (pid {pid}) does not map libcuda")
+    found = [str(_backend._lib_path(n).resolve()) for n in libs]
+    for lib in found:
+        check(lib in paths, f"{what} (pid {pid}) does not map {lib}")
+    return f"{what} pid {pid}: " + ", ".join(
+        [Path(cuda[0]).name, *(Path(lib).name for lib in found), "no jax"])
+
+
+def drive_window(core, make_transport, token, keys, seconds):
+    """``FABRIC_CLIENTS`` threads a study, each with its own keep-alive
+    transport, doing ask/tell pairs for ``seconds``.  Returns the pairs
+    and every ask's latency; any error fails the phase."""
+    space = core.SearchSpace.from_properties(PROPS)
+    errors: list[BaseException] = []
+    asks: list[list[float]] = []
+    # the window opens once every client holds its connection
+    window: dict[str, float] = {}
+    start = threading.Barrier(
+        len(keys) * FABRIC_CLIENTS + 1,
+        action=lambda: window.update(t0=time.monotonic()))
+
+    def worker(i: int, key: str, lat: list[float]) -> None:
+        try:
+            client = core.Client(make_transport(), token,
+                                 worker_id=f"fabric-client-{i}")
+            start.wait()
+            while time.monotonic() < window["t0"] + seconds:
+                t0 = time.perf_counter()
+                trial = client.ask(key)
+                lat.append(time.perf_counter() - t0)
+                client.tell(trial["uid"], objective(space, trial["params"]))
+        except BaseException as e:  # reported and re-raised below
+            errors.append(e)
+            start.abort()
+
+    threads = []
+    for key in keys:
+        for _ in range(FABRIC_CLIENTS):
+            asks.append([])
+            threads.append(threading.Thread(
+                target=worker, args=(len(threads), key, asks[-1])))
+    for t in threads:
+        t.start()
+    start.wait()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    wall = time.monotonic() - window["t0"]
+    check(not any(t.is_alive() for t in threads), "a fabric client hung")
+    if errors:
+        raise errors[0]
+    lat = [x for lane in asks for x in lane]
+    return len(lat), wall, lat
+
+
+def scaling_run(core, root, w):
+    """One ``ShardFabric(workers=w)``: fill the studies, a routed window
+    (and at w = 4 a direct window and the GP study).  Returns the rows."""
+    fab = core.ShardFabric(workers=w, storage="durable", fsync="group",
+                           root=os.path.join(root, f"w{w}"), device="cuda",
+                           spawn_timeout=180.0)
+    rows = []
+    t_start = time.perf_counter()
+    try:
+        fab.start()
+        t_up = time.perf_counter() - t_start
+        token = fab.issue_token("chip-smoke-fabric")
+        client = core.Client(core.HttpTransport(fab.host, fab.port), token)
+        keys = [client.ensure_study(fabric_spec(f"fabric-{i}", "tpe"))[0]
+                for i in range(FABRIC_STUDIES)]
+        owners = [fab.owner_of(k) for k in keys]
+        space = core.SearchSpace.from_properties(PROPS)
+        t0 = time.perf_counter()
+        for key in keys:             # one proposal round per ask_batch
+            fill(client, space, key, FABRIC_HISTORY, 250)
+        t_fill = time.perf_counter() - t0
+        modes = [("inline" if fab.inline else "routed",
+                  lambda: core.HttpTransport(fab.host, fab.port))]
+        if w == 4:
+            modes.append(("direct", lambda: core.ShardedHttpTransport(
+                fab.endpoints)))
+        for mode, make in modes:
+            before = worker_launches(core, fab)
+            n, wall, lat = drive_window(core, make, token, keys,
+                                        FABRIC_WINDOW_S)
+            after = worker_launches(core, fab)
+            delta = {wid: after[wid]["tpe_score"] - before[wid]["tpe_score"]
+                     for wid in after}
+            others = {wid: {op: after[wid][op] - before[wid][op]
+                            for op in after[wid] if op != "tpe_score"}
+                      for wid in after}
+            check(sum(delta.values()) == n,
+                  f"w={w} {mode}: {sum(delta.values())} tpe_score launches "
+                  f"for {n} asks")
+            check(not any(v for d in others.values() for v in d.values()),
+                  f"w={w} {mode}: other kernels launched: {others}")
+            for wid in set(owners):
+                check(delta[wid] > 0, f"w={w}: worker {wid} owns a study "
+                      "and launched no tpe_score")
+            rows.append({"w": w, "mode": mode, "pairs": n, "wall": wall,
+                         "pairs_s": n / wall, "p50": pct(lat, 50),
+                         "p99": pct(lat, 99), "owners": owners,
+                         "launches": delta})
+            log(f"fabric w={w} {mode}: {n} ask/tell pairs in {wall:.3f} s "
+                f"= {n / wall:.2f} pairs/s, ask p50 {pct(lat, 50):.3f} ms "
+                f"p99 {pct(lat, 99):.3f} ms; owners {owners} "
+                f"({len(set(owners))} distinct); tpe_score launches by "
+                f"worker {delta} (one per ask)")
+        # every worker that owns a study runs on the card and maps the
+        # Parzen library; none maps JAX
+        pids = worker_pids(fab)
+        for wid, pid in sorted(pids.items()):
+            libs = ("parzen",) if wid in owners else ()
+            log("fabric w=%d maps: %s" % (w, check_maps(
+                pid, f"worker {wid}", libs)))
+        if w == 4:
+            check(len(set(owners)) >= 3,
+                  f"w=4: the 8 studies have {len(set(owners))} owners")
+            rows.append(gp_through_fabric(core, fab, token))
+            log(compute_apps(pids))
+        log(f"fabric w={w}: up in {t_up:.2f} s, {FABRIC_STUDIES} x "
+            f"{FABRIC_HISTORY} trials told in {t_fill:.2f} s")
+    finally:
+        fab.stop()
+    return rows
+
+
+def gp_through_fabric(core, fab, token) -> dict:
+    """A GP study routed through the fabric: its asks launch the Matérn
+    kernel (K and Ks) in the worker that owns it, not elsewhere."""
+    space = core.SearchSpace.from_properties(PROPS)
+    client = core.Client(core.HttpTransport(fab.host, fab.port), token)
+    key, _ = client.ensure_study(fabric_spec("fabric-gp", "gp"))
+    owner = fab.owner_of(key)
+    fill(client, space, key, 64, 64)
+    before = worker_launches(core, fab)
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        trial = client.ask(key)
+        lat.append(time.perf_counter() - t0)
+        check(in_space(space, trial["params"]), "gp ask out of space")
+        client.tell(trial["uid"], objective(space, trial["params"]))
+    after = worker_launches(core, fab)
+    delta = {wid: after[wid]["matern52_masked"]
+             - before[wid]["matern52_masked"] for wid in after}
+    check(delta[owner] > 0 and delta[owner] % 2 == 0,
+          f"gp owner {owner}: {delta[owner]} matern launches")
+    check(not any(v for wid, v in delta.items() if wid != owner),
+          f"matern launched off the owner: {delta}")
+    pid = worker_pids(fab)[owner]
+    log("fabric gp: owner worker %d, 5 asks at 64 observations, p50 "
+        "%.3f ms; matern52_masked launches by worker %s; %s" % (
+            owner, pct(lat, 50), delta,
+            check_maps(pid, f"gp owner {owner}", ("parzen", "matern"))))
+    return {"w": 4, "mode": "gp", "owner": owner, "launches": delta}
+
+
+def compute_apps(pids: dict[int, int]) -> str:
+    """nvidia-smi's compute processes, and which worker pids it lists
+    (in a container it may list none)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    listed = {int(line.split(",")[0]) for line in out.splitlines()
+              if line.split(",")[0].strip().isdigit()}
+    return (f"fabric w=4: nvidia-smi compute apps {out.splitlines()!r}; "
+            f"worker pids listed: "
+            f"{sorted(w for w, p in pids.items() if p in listed)} of "
+            f"{sorted(pids)}")
+
+
+def failover_run(core, root) -> dict:
+    """SIGKILL the leader owning a TPE study past startup mid-campaign
+    (2 workers, 1 semisync follower each, fsync always): the gap to the
+    first ask/tell pair started after the kill, every acknowledged tell
+    read back, and the promoted leader's asks on the card."""
+    fab = core.ShardFabric(workers=2, replicas=1, replication="semisync",
+                           fsync="always", root=os.path.join(root, "fo"),
+                           respawn_poll=0.1, device="cuda",
+                           spawn_timeout=180.0)
+    space = core.SearchSpace.from_properties(PROPS)
+    patient = core.RetryPolicy(max_attempts=12, base_delay=0.05,
+                               max_delay=0.5)
+    try:
+        fab.start()
+        token = fab.issue_token("chip-smoke-failover")
+        client = core.Client(core.HttpTransport(fab.host, fab.port), token,
+                             retry=patient)
+        key, _ = client.ensure_study(fabric_spec("fabric-failover", "tpe"))
+        fill(client, space, key, FAILOVER_HISTORY, 100)
+        wid = fab.owner_of(key)
+        old_pid = fab._workers[wid].pid
+        lock = threading.Lock()
+        told: list[str] = []
+        pairs: list[tuple[float, float]] = []     # (started, done)
+        errors: list[BaseException] = []
+        stop = threading.Event()
+        killed_at = [math.inf]
+
+        def campaign(i: int) -> None:
+            try:
+                cl = core.Client(core.HttpTransport(fab.host, fab.port),
+                                 token, worker_id=f"fo{i}", retry=patient)
+                while not stop.is_set():
+                    t0 = time.monotonic()
+                    trial = cl.ask(key)
+                    cl.tell(trial["uid"], objective(space, trial["params"]))
+                    with lock:
+                        told.append(trial["uid"])
+                        pairs.append((t0, time.monotonic()))
+            except BaseException as e:  # reported and re-raised below
+                errors.append(e)
+
+        def after_kill() -> int:
+            with lock:
+                return sum(t0 > killed_at[0] for t0, _ in pairs)
+
+        threads = [threading.Thread(target=campaign, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while len(pairs) < 40 and not errors:
+            check(time.monotonic() < deadline, "failover campaign stalled")
+            time.sleep(0.01)
+        killed_at[0] = time.monotonic()
+        fab.kill_worker(wid, sig=signal.SIGKILL)
+        fab.wait_respawn(wid, old_pid, timeout=120)
+        promoted_after = time.monotonic() - killed_at[0]
+        deadline = time.monotonic() + 60
+        while after_kill() < 40 and not errors:
+            check(time.monotonic() < deadline, "no pairs after failover")
+            time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        if errors:
+            raise errors[0]
+        # the fleet heals: a fresh follower streams from the promoted
+        # leader (and no spawn is in flight when the fabric stops)
+        t_heal = time.monotonic()
+        while not any(w["worker"] == wid and w.get("role") == "follower"
+                      and (w.get("client") or {}).get("connected")
+                      for w in fab.health()["workers"]):
+            check(time.monotonic() - t_heal < 180,
+                  "no follower reattached to the promoted leader")
+            time.sleep(0.1)
+        healed_after = time.monotonic() - killed_at[0]
+        event = [e for e in fab.events if e["event"] == "failover"]
+        check(event and event[-1]["worker"] == wid
+              and event[-1]["digest_match"] is True,
+              f"failover event {event}")
+        gap = min(done for t0, done in pairs if t0 > killed_at[0]) \
+            - killed_at[0]
+        completed = {t["uid"] for t in client.iter_trials(
+            key, state="completed")}
+        lost = sorted(set(told) - completed)
+        check(not lost, f"{len(lost)} acknowledged tells lost: {lost[:5]}")
+        check(len(told) == len(set(told)), "a tell counted twice")
+        n_completed = client.study(key)["n_completed"]
+        check(n_completed == len(completed),
+              f"n_completed {n_completed} != {len(completed)}")
+        # the promoted follower served no ask before the kill: every
+        # launch it counts is a proposal of the promoted leader
+        promoted = fab._workers[wid]
+        health = worker_health(core, (promoted.host, promoted.port))
+        check(health["device"]["type"] == "cuda", "promoted off the card")
+        launches = health["device"]["kernel_launches"]["tpe_score"]
+        check(launches > 0, "the promoted leader launched no tpe_score")
+        maps = check_maps(promoted.pid, f"promoted leader {wid}",
+                          ("parzen",))
+        log(f"fabric failover: SIGKILL of worker {wid} (pid {old_pid}) "
+            f"after {len(pairs) - after_kill()} pairs; promoted pid "
+            f"{promoted.pid} at epoch {event[-1]['epoch']}, digest match, "
+            f"in the route table {promoted_after:.3f} s after the kill; "
+            f"failover gap {gap:.3f} s (kill to the first pair started "
+            f"after it and completed); a new follower attached "
+            f"{healed_after:.3f} s after the kill; "
+            f"{len(told)} acknowledged tells, 0 lost, "
+            f"n_completed {n_completed}; the promoted leader's tpe_score "
+            f"launches {launches} for {after_kill()} pairs after the kill; "
+            f"{maps}")
+        return {"gap": gap, "told": len(told), "launches": launches}
+    finally:
+        fab.stop()
+
+
+def worker_imports() -> str:
+    """What a fresh process spends importing torch, then the fabric
+    module, before a worker can print its ready line."""
+    code = ("import time; t0 = time.perf_counter(); import torch; "
+            "t1 = time.perf_counter(); import repro_torch.core.fabric; "
+            "print(t1 - t0, time.perf_counter() - t1)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout.split()
+    return (f"fabric: a fresh process imports torch in {float(out[0]):.3f} "
+            f"s and repro_torch.core.fabric in {float(out[1]):.3f} s more")
+
+
+def fabric_phase(core, K) -> dict:
+    """Phase 14: ``ShardFabric`` at w = 1 (inline), 2 and 4 on the card,
+    the direct mode and a GP study at w = 4, then a failover."""
+    torch.cuda.empty_cache()
+    reset_counts(K)          # the inline fabric's worker is this process
+    log(worker_imports())
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fabric-") as root:
+        rows = []
+        for w in (1, 2, 4):
+            rows += scaling_run(core, root, w)
+        base = rows[0]["pairs_s"]
+        log("fabric scaling against w=1 in this run: " + "; ".join(
+            f"w={r['w']} {r['mode']} {r['pairs_s'] / base:.3f}x"
+            for r in rows if "pairs_s" in r))
+        failover = failover_run(core, root)
+    parzen = sum(sum(r["launches"].values()) for r in rows
+                 if r["mode"] != "gp") + failover["launches"]
+    matern = sum(sum(r["launches"].values()) for r in rows
+                 if r["mode"] == "gp")
+    log(f"fabric: {parzen} tpe_score launches in the timed windows and "
+        f"the promoted leader, {matern} matern52_masked launches in the "
+        "GP study's owner, all in the workers' own processes")
+    return {"tpe_score": parzen, "matern52_masked": matern}
+
+
 def breakdown(label: str, wall: float, device: dict) -> str:
     if not device:
         return f"{label}: device time not measured (no device events)"
@@ -1641,7 +2044,9 @@ def main() -> int:
     train_phase(M, O, D, TR, kernels)
     t0 = lap("phase 12", t0)
     hpo_launches = hpo_phase(core, K, M, O, D, TR, kernels)
-    lap("phase 13", t0)
+    t0 = lap("phase 13", t0)
+    fabric_phase(core, K)
+    lap("phase 14", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's and zamba2's

@@ -12,8 +12,9 @@ The service core is sharded per study (see ``server.StudyContext``):
 requests for different studies never contend on a common lock.
 
 This is the PyTorch port: the TPE and GP samplers compute on a torch
-device through hand-written CUDA kernels.  The multi-process shard
-fabric and replication are not ported yet.
+device through hand-written CUDA kernels, in one process or in every
+worker process of the shard fabric (``fabric.ShardFabric``, with WAL
+shipping replication and failover in ``replication``).
 """
 from .api import ApiError, Route, Router, build_openapi, build_router
 from .auth import AuthError, TokenManager
@@ -27,11 +28,15 @@ from .samplers import known_samplers, make_sampler
 from .server import HOPAAS_VERSION, HopaasServer, StudyContext
 from .space import Param, SearchSpace
 from .durable import DurableStorage, FsyncMode, WalDirectoryLockedError
+from .fabric import FabricDispatcher, HashRing, ShardFabric
 from .faults import FaultInjector
+from .replication import (ReplicationClient, ReplicationError,
+                          ReplicationHub, recover_dir_state,
+                          reconcile_with)
 from .storage import CorruptJournalError, InMemoryStorage, JournalStorage
 from .transport import (DirectTransport, HttpServiceRunner, HttpTransport,
                         PooledHttpTransport, RoundRobinTransport,
-                        Transport)
+                        ShardedHttpTransport, Transport)
 from .types import Direction, Study, StudyConfig, Trial, TrialState
 
 __all__ = [
@@ -43,9 +48,11 @@ __all__ = [
     "HOPAAS_VERSION", "HopaasServer", "StudyContext",
     "ObservationCache", "Param", "SearchSpace",
     "CorruptJournalError", "DurableStorage", "FsyncMode",
-    "WalDirectoryLockedError", "FaultInjector", "InMemoryStorage",
-    "JournalStorage", "DirectTransport",
+    "WalDirectoryLockedError", "FabricDispatcher", "HashRing",
+    "ShardFabric", "FaultInjector", "ReplicationClient",
+    "ReplicationError", "ReplicationHub", "recover_dir_state",
+    "reconcile_with", "InMemoryStorage", "JournalStorage", "DirectTransport",
     "HttpServiceRunner", "HttpTransport", "PooledHttpTransport",
-    "RoundRobinTransport", "Transport",
+    "RoundRobinTransport", "ShardedHttpTransport", "Transport",
     "Direction", "Study", "StudyConfig", "Trial", "TrialState",
 ]

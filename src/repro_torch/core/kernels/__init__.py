@@ -17,7 +17,14 @@ from .matern import (matern52_cross, matern52_cross_plain, matern52_masked,
 from .parzen import (parzen_log_density, parzen_log_density_plain, tpe_score,
                      tpe_score_plain)
 
-__all__ = ["build_all", "resolve_device", "matern52_cross",
+
+def launch_counts() -> dict[str, int]:
+    """This process's kernel launches so far, by op."""
+    return {fn.__name__: fn.launches for fn in (
+        tpe_score, parzen_log_density, matern52_masked, matern52_cross)}
+
+
+__all__ = ["build_all", "launch_counts", "resolve_device", "matern52_cross",
            "matern52_cross_plain", "matern52_masked",
            "matern52_masked_plain", "parzen_log_density",
            "parzen_log_density_plain", "tpe_score", "tpe_score_plain"]

@@ -59,7 +59,7 @@ from . import faults
 from .api import ApiError, build_openapi, build_router
 from .api.router import Router
 from .auth import TokenManager
-from .kernels import resolve_device
+from .kernels import launch_counts, resolve_device
 from .obs_cache import ObservationCache
 from .pruners import make_pruner
 from .samplers import make_sampler
@@ -407,6 +407,10 @@ class HopaasServer:
             "replication": stats.get("replication"),
             "storage": {k: stats[k] for k in storage_keys if k in stats},
             "speculation": self.speculation_stats(),
+            # where this process's samplers compute, and its acquisition
+            # kernel launches (a fabric worker's are its own process's)
+            "device": {"type": self.device.type,
+                       "kernel_launches": launch_counts()},
         }
         hook = self.health_hook
         if hook is not None:

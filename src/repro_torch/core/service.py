@@ -7,13 +7,20 @@ thread-per-connection server — backed by a durable storage engine
 (PostgreSQL role) that survives crashes and restarts, and prints a
 fresh API token.
 
-TPE and GP compute on ``--device`` (``cuda``, the default, or ``cpu``);
-asking for CUDA where there is none exits with an error.  The
-multi-process shard fabric (``--workers N`` with N > 1, ``--replicas``)
-is not ported yet and exits with an error naming it.
+``--workers N`` (N > 1, or ``REPRO_WORKERS=N``) launches the
+multi-process shard fabric instead (``repro_torch.core.fabric``): N
+worker processes, each owning a consistent-hash slice of the study
+shards with a private WAL directory, fronted by the consistent-hash
+router; dead workers are respawned on their WAL with digest-verified
+recovery, and ``--replicas R`` gives each R followers for failover.
+
+TPE and GP compute on ``--device`` (``cuda``, the default, or ``cpu``),
+in every worker process of the fabric; asking for CUDA where there is
+none exits with an error before any worker starts.
 
   PYTHONPATH=src python -m repro_torch.core.service --port 8731 \
-      --journal-dir hopaas-data --fsync group --device cuda
+      --workers 4 --replicas 2 --journal-dir hopaas-data --fsync group \
+      --device cuda
 
 ``--journal-dir`` selects the snapshot + segmented-WAL engine
 (``DurableStorage``); ``--journal FILE`` keeps the legacy single-file
@@ -55,14 +62,51 @@ def _default_workers() -> int:
         return 1
 
 
+def _run_fabric(args: argparse.Namespace) -> int:
+    from .fabric import ShardFabric
+    fabric = ShardFabric(
+        workers=args.workers, host=args.host, port=args.port,
+        root=args.journal_dir,
+        storage="durable" if args.journal_dir else "memory",
+        fsync=args.fsync, segment_bytes=args.segment_bytes,
+        lease_seconds=args.lease_seconds, lanes=args.lanes,
+        replicas=args.replicas, replication=args.replication,
+        device=args.device).start()
+    atexit.register(fabric.stop)
+    token = fabric.issue_token("cli-user",
+                               ttl_seconds=args.token_ttl_hours * 3600)
+    eps = ", ".join(f"{h}:{p}" for h, p in fabric.endpoints)
+    print(f"HOPAAS fabric at {fabric.url}  ({args.workers} worker "
+          f"processes, storage={fabric.storage_kind}, "
+          f"device={fabric.device})")
+    print(f"worker endpoints: {eps}")
+    if fabric.replicas:
+        health = fabric.health()
+        roles = ", ".join(
+            f"w{w['worker']}:{w.get('role', '?')}@e{w.get('epoch', 0)}"
+            for w in health["workers"])
+        print(f"replication: {fabric.replicas} follower(s) per shard, "
+              f"mode={fabric.replication}  [{roles}]")
+        print(f"health: GET {fabric.url}/api/v2/health")
+    print(f"API token: {token}", flush=True)
+    print("Ctrl-C to stop.", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        fabric.stop()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8731)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--workers", type=int, default=_default_workers(),
-                    help="worker processes; > 1 would launch the "
-                         "multi-process shard fabric, which is not ported "
-                         "(default: $REPRO_WORKERS or 1)")
+                    help="worker processes; > 1 launches the multi-process "
+                         "shard fabric (default: $REPRO_WORKERS or 1)")
     ap.add_argument("--api-workers", type=int, default=2,
                     help="stateless API workers sharing one storage "
                          "(single-process mode)")
@@ -93,12 +137,19 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--token-ttl-hours", type=float, default=24.0)
     ap.add_argument("--replicas", type=int, default=None,
                     help="follower replicas per fabric worker; > 0 "
-                         "needs the shard fabric, which is not ported "
-                         "(default: $REPRO_REPLICAS or 0)")
+                         "enables WAL shipping + automatic failover "
+                         "(default: $REPRO_REPLICAS or 0; needs "
+                         "--journal-dir)")
+    ap.add_argument("--replication", choices=("async", "semisync"),
+                    default=None,
+                    help="async: fsync ack never waits for followers; "
+                         "semisync: acks additionally wait for one "
+                         "follower ack (default: $REPRO_REPLICATION or "
+                         "async)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="torch device the TPE and GP samplers compute on "
-                         "(default: cuda; fails if there is no CUDA "
-                         "device)")
+                    help="torch device the TPE and GP samplers compute on, "
+                         "in every fabric worker too (default: cuda; fails "
+                         "if there is no CUDA device)")
     ap.add_argument("--speculate-depth", type=int, default=None,
                     help="proposals to precompute off-lock per study "
                          "(constant-liar speculative ask pipeline); 0 "
@@ -108,6 +159,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.speculate_depth is not None:
         if args.speculate_depth < 0:
             ap.error("--speculate-depth must be >= 0")
+        # the fabric's worker processes build their own HopaasServer and
+        # read the depth from the environment, so export it before any
+        # server (in-process or spawned) is constructed
         os.environ["REPRO_SPECULATE"] = str(args.speculate_depth)
 
     replicas = args.replicas
@@ -116,14 +170,21 @@ def main(argv: list[str] | None = None) -> int:
             replicas = int(os.environ.get("REPRO_REPLICAS", "0") or 0)
         except ValueError:
             replicas = 0
-    if args.workers > 1 or replicas > 0:
-        ap.error("--workers > 1 and --replicas > 0 need the multi-process "
-                 "shard fabric, which is not ported to repro_torch yet "
-                 "(see ROADMAP.md)")
+    # before any storage opens or any worker process starts
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
+    if args.workers > 1 or replicas > 0:
+        if args.journal:
+            ap.error("--journal (legacy single-file WAL) cannot back the "
+                     "shard fabric; use --journal-dir")
+        if args.frontend == "threaded":
+            ap.error("the shard fabric requires the evloop frontend")
+        if replicas > 0 and not args.journal_dir:
+            ap.error("--replicas needs --journal-dir (only the durable "
+                     "engine has a WAL stream to ship)")
+        return _run_fabric(args)
 
     storage = build_storage(args)
     # a missed shutdown path (exception, sys.exit) must still flush the

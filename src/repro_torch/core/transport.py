@@ -197,10 +197,6 @@ def _env_workers() -> int:
         return 1
 
 
-_FABRIC_MISSING = ("the multi-process shard fabric is not ported to "
-                   "repro_torch yet (see ROADMAP.md)")
-
-
 class HttpServiceRunner:
     """Hosts one or more HopaasServer workers behind an HTTP frontend.
 
@@ -213,9 +209,18 @@ class HttpServiceRunner:
     Uvicorn×N + PostgreSQL deployment shape; the event loop pins each
     dispatch lane (and therefore each study) to one worker.
 
-    ``workers=N`` (or ``REPRO_WORKERS=N``) with N > 1 would thread the
-    shard-fabric router into the request path; the fabric is not ported
-    yet, so that raises ``NotImplementedError``.
+    ``workers=N`` (or ``REPRO_WORKERS=N``) additionally threads the
+    shard-fabric router into the request path: the public frontend runs
+    the consistent-hash ``FabricDispatcher`` and proxies every request
+    to one of N internal shard frontends, exercising classification,
+    ring routing, the byte-level proxy and scatter-gather on every
+    request.  The shard frontends share the caller's workers (and
+    therefore one storage), so semantics are identical to the
+    single-frontend runner.  For *process*-level parallelism with
+    private per-worker storage, use ``repro_torch.core.fabric.ShardFabric``
+    (the service CLI's ``--workers``).
+    The threaded backend ignores ``workers`` (it has no dispatcher
+    hook).
     """
 
     def __init__(self, server: HopaasServer | list[HopaasServer],
@@ -227,12 +232,27 @@ class HttpServiceRunner:
                         or os.environ.get("REPRO_FRONTEND", "evloop")).lower()
         self.fabric_workers = (_env_workers() if workers is None
                                else max(1, int(workers)))
+        self._shards: list[Any] = []
+        self._dispatcher = None
         if self.backend == "evloop":
-            if self.fabric_workers > 1:
-                raise NotImplementedError(_FABRIC_MISSING)
             from .aio import EventLoopFrontend
-            self._frontend = EventLoopFrontend(self.workers, host=host,
-                                               port=port, lanes=lanes)
+            if self.fabric_workers > 1:
+                from .fabric import FabricDispatcher, RouteTable
+                # N internal shard frontends on private ports; the
+                # public frontend only routes + proxies
+                self._shards = [
+                    EventLoopFrontend(self.workers, host=host, port=0,
+                                      lanes=lanes)
+                    for _ in range(self.fabric_workers)]
+                table = RouteTable({i: (host, fe.port)
+                                    for i, fe in enumerate(self._shards)})
+                self._dispatcher = FabricDispatcher(table)
+                self._frontend = EventLoopFrontend(
+                    [], host=host, port=port, lanes=lanes,
+                    dispatcher=self._dispatcher)
+            else:
+                self._frontend = EventLoopFrontend(self.workers, host=host,
+                                                   port=port, lanes=lanes)
         elif self.backend == "threaded":
             self.fabric_workers = 1
             self._frontend = _ThreadedFrontend(self.workers, host, port)
@@ -242,11 +262,17 @@ class HttpServiceRunner:
         self.host, self.port = self._frontend.host, self._frontend.port
 
     def start(self) -> "HttpServiceRunner":
+        for fe in self._shards:
+            fe.start()
         self._frontend.start()
         return self
 
     def stop(self) -> None:
         self._frontend.stop()
+        if self._dispatcher is not None:
+            self._dispatcher.close()
+        for fe in self._shards:
+            fe.stop()
         # durability: no acknowledged mutation may ride only in an OS
         # buffer once the frontend is gone (workers usually share one
         # storage object — flush each distinct one once)
@@ -254,8 +280,20 @@ class HttpServiceRunner:
             storage.flush()
 
     def frontend_stats(self) -> dict[str, Any]:
-        """Frontend-level counters (lane count, cache hits, ...)."""
-        return self._frontend.stats()
+        """Frontend-level counters (lane count, cache hits, ...).
+
+        In fabric mode the public frontend proxies instead of serving, so
+        worker-level counters (inline hits, cache hits, per-lane load)
+        are aggregated from the shard frontends."""
+        stats = self._frontend.stats()
+        if self._shards:
+            stats["fabric_workers"] = len(self._shards)
+            stats["dispatcher"] = self._dispatcher.stats()
+            for key in ("requests", "inline_requests", "cache_hits",
+                        "cache_entries"):
+                stats[key] = stats.get(key, 0) + sum(
+                    fe.stats().get(key, 0) for fe in self._shards)
+        return stats
 
     @property
     def url(self) -> str:
@@ -263,16 +301,53 @@ class HttpServiceRunner:
 
 
 class ShardedHttpTransport(Transport):
-    """Client-side shard routing over the fabric's worker endpoints.
+    """Client-side shard routing: one connection pool per fabric worker.
 
-    The shard fabric is not ported yet, so this raises
-    ``NotImplementedError``; use ``HttpTransport`` or
-    ``PooledHttpTransport`` against a single-process service.
+    Where ``SO_REUSEPORT`` is unavailable the fabric's workers listen on
+    private per-worker ports behind the router's proxy; a client that
+    knows those endpoints (``ShardFabric.endpoints``) can skip the proxy
+    hop entirely by computing the same consistent-hash placement the
+    router uses and sending each request straight to the owning worker.
+    Keyless requests go to the first endpoint; misrouted requests are
+    still correct (every worker runs the dispatcher and forwards one
+    hop), just slower.
     """
 
     def __init__(self, endpoints: list[tuple[str, int]],
                  timeout: float = 30.0, pool_size: int = 2):
-        raise NotImplementedError(_FABRIC_MISSING)
+        if not endpoints:
+            raise ValueError("ShardedHttpTransport needs >= 1 endpoint")
+        from .fabric import HashRing, classify_target
+        self._classify = classify_target
+        self.endpoints = [(h, int(p)) for h, p in endpoints]
+        self._ring = HashRing(range(len(self.endpoints)))
+        self._pools = [PooledHttpTransport(h, p, timeout=timeout,
+                                           pool_size=pool_size)
+                       for h, p in self.endpoints]
+
+    def _pool_for(self, method: str, path: str,
+                  body: dict[str, Any] | None) -> PooledHttpTransport:
+        kind = self._classify(method, path)
+        key: str | None = None
+        if kind[0] == "key":
+            key = kind[1]
+        elif kind[0] == "spec":
+            from .fabric import _key_from_spec
+            key = _key_from_spec(body)
+        elif kind[0] == "uid":
+            from .fabric import _key_from_uid
+            key = _key_from_uid(body)
+        if key is None:
+            return self._pools[0]
+        return self._pools[self._ring.owner(key)]
+
+    def request_full(self, method, path, body=None, headers=None):
+        return self._pool_for(method, path, body).request_full(
+            method, path, body, headers)
+
+    def close(self) -> None:
+        for pool in self._pools:
+            pool.close()
 
 
 # --------------------------------------------------------------------------- #

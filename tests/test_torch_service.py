@@ -13,6 +13,8 @@
 """
 import ast
 import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -272,15 +274,130 @@ def test_default_device_raises_without_a_card():
         port_service.main(["--port", "0"])
 
 
-def test_unported_fabric_paths_raise():
-    server = HopaasServer(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HttpServiceRunner(server, backend="evloop", workers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedHttpTransport([("127.0.0.1", 1)])
-    for argv in (["--workers", "2"], ["--replicas", "1"]):
-        with pytest.raises(SystemExit):
-            port_service.main(["--device", "cpu", *argv])
+def _service_cli(argv, timeout=180.0):
+    """Start ``service.main(argv)`` in a child process; returns the
+    process, the router's URL and the API token from its banner."""
+    code = ("import sys\n"
+            "from repro_torch.core import service\n"
+            "sys.exit(service.main(sys.argv[1:]))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.Popen([sys.executable, "-c", code, *argv], env=env,
+                            stdout=subprocess.PIPE, text=True)
+    url = token = None
+    lines = []
+    deadline = time.monotonic() + timeout
+    while token is None and time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        if line.startswith("HOPAAS fabric at "):
+            url = line.split()[3]
+        elif line.startswith("API token: "):
+            token = line.split()[2]
+    if token is None:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError(f"no banner from the service: {lines}")
+    return proc, url, token, lines
+
+
+def _ask_tell(client, n=3):
+    key, _ = client.ensure_study({"name": "fabric", "properties": SPACE,
+                                  "sampler": {"name": "tpe",
+                                              "n_startup_trials": 2}})
+    for _ in range(n):
+        trial = client.ask(key)
+        client.tell(trial["uid"], _value(trial["params"]))
+    return key, client.study(key)
+
+
+@pytest.mark.parametrize("path", ["runner", "sharded_transport",
+                                  "service_cli", "no_card"])
+def test_fabric_paths_serve(tmp_path, monkeypatch, path):
+    """The fabric modes of the transport and the service CLI serve, and
+    asking for the card without one starts no process."""
+    from repro_torch.core import fabric
+    if path == "runner":
+        server = HopaasServer(device="cpu")
+        runner = HttpServiceRunner(server, backend="evloop",
+                                   workers=2).start()
+        try:
+            client = Client(HttpTransport(runner.host, runner.port),
+                            server.tokens.issue("runner"))
+            _, study = _ask_tell(client)
+            assert study["n_completed"] == 3
+            stats = runner.frontend_stats()
+            assert stats["fabric_workers"] == 2
+            assert stats["dispatcher"]["proxied"] > 0
+        finally:
+            runner.stop()
+    elif path == "sharded_transport":
+        fab = fabric.ShardFabric(workers=2, storage="memory", device="cpu",
+                                 spawn_timeout=120.0).start()
+        try:
+            transport = ShardedHttpTransport(fab.endpoints)
+            client = Client(transport, fab.issue_token("direct"))
+            key, study = _ask_tell(client)
+            assert study["n_completed"] == 3
+            # every keyed request went straight to the owner
+            assert fab.stats()["dispatcher"]["proxied"] == 0
+            owner = fab.owner_endpoint(key)
+            assert transport._pool_for(
+                "POST", f"/api/v2/studies/{key}/trials:ask",
+                None) is transport._pools[fab.endpoints.index(owner)]
+            transport.close()
+        finally:
+            fab.stop()
+    elif path == "service_cli":
+        proc, url, token, lines = _service_cli(
+            ["--workers", "2", "--replicas", "1", "--device", "cpu",
+             "--port", "0", "--journal-dir", str(tmp_path / "journal"),
+             "--fsync", "off"])
+        try:
+            assert any("2 worker processes" in ln and "device=cpu" in ln
+                       for ln in lines), lines
+            assert any(ln.startswith("replication: 1 follower") and
+                       ln.count(":leader@") == 2 and
+                       ln.count(":follower@") == 2 for ln in lines), lines
+            host, port = url[len("http://"):].rsplit(":", 1)
+            client = Client(HttpTransport(host, int(port)), token)
+            _, study = _ask_tell(client)
+            assert study["n_completed"] == 3
+            assert client.version() == HOPAAS_VERSION
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                assert proc.wait(timeout=60) == 0
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+        # the leaders and followers journaled under the one root
+        assert {"worker-0", "worker-1", "worker-0-replica-0",
+                "worker-1-replica-0"} <= set(os.listdir(tmp_path /
+                                                        "journal"))
+    else:
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        spawned = []
+
+        def popen(*args, **kwargs):
+            spawned.append(args)
+            raise AssertionError("a fabric process was started")
+
+        monkeypatch.setattr(fabric.subprocess, "Popen", popen)
+        for kwargs in ({}, {"workers": 4, "replicas": 2}):
+            with pytest.raises(RuntimeError, match="cuda"):
+                fabric.ShardFabric(**kwargs)
+        root = tmp_path / "journal"
+        for argv in (["--workers", "2"],
+                     ["--workers", "4", "--replicas", "2", "--device",
+                      "cuda", "--journal-dir", str(root)]):
+            with pytest.raises(SystemExit) as e:
+                port_service.main(["--port", "0", *argv])
+            assert e.value.code == 2
+        assert not spawned and not root.exists()
 
 
 def test_port_imports_without_jax():
@@ -306,7 +423,18 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 60
 
 
+# code held in a string: ``-c`` programs, ``-m`` module paths, dynamic
+# imports; ``repro_torch`` is the port itself
+_CODE_IN_STRING = re.compile(
+    r"\b(?:from|import)\s+(?:repro|jax|jaxlib)\b(?!_)"
+    r"|^(?:repro|jax|jaxlib)(?:\.\w+)*$")
+
+
 def test_port_source_imports_neither_jax_nor_repro():
+    """No ``import`` node of the port names JAX or the JAX package, and
+    no string constant holds such an import or module path either (a
+    program in a string, as a fabric worker's spawn line, passes the
+    import walk)."""
     offenders = []
     for path in (SRC / "repro_torch").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -314,8 +442,20 @@ def test_port_source_imports_neither_jax_nor_repro():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
+            elif (isinstance(node, ast.Constant)
+                    and isinstance(node.value, str)):
+                if _CODE_IN_STRING.search(node.value):
+                    offenders.append((str(path), node.lineno,
+                                      node.value[:80]))
+                continue
             else:
                 continue
             offenders += [(str(path), n) for n in names
                           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not offenders
+    assert _CODE_IN_STRING.search(
+        "import sys; from repro.core.fabric import main")
+    assert _CODE_IN_STRING.search("import jax.numpy as jnp")
+    assert _CODE_IN_STRING.search("repro.core.fabric")
+    assert not _CODE_IN_STRING.search(
+        "import sys; from repro_torch.core.fabric import main")
