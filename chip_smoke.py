@@ -31,8 +31,9 @@ from import, and exits non-zero on any failure:
     launches (K and Ks) per EI evaluation;
  5. runs the speculative pipeline (depth 64) under 64 client threads;
  6. holds the flash-attention kernels against their plain version on
-    the card (deepseek-7b's, zamba2-1.2b's and qwen3-32b's shapes, a 4096
-    window at S 8192, windows of 200 and 32, S = 96, 100, 200, 300 and
+    the card (the served prefills' shapes: deepseek-7b's, zamba2-1.2b's,
+    qwen2-moe-a2.7b's and mixtral-8x7b's; qwen3-32b's, a 4096 window at
+    S 8192, windows of 200 and 32, S = 96, 100, 200, 300 and
     1000 with GQA up to 8:1, hd 16 to 128, unaligned views; 2e-4 in fp32,
     2e-2 in bf16) and times the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (the yardstick only; the port
@@ -41,7 +42,8 @@ from import, and exits non-zero on any failure:
     ``attn_impl="flash"`` against ``"ref"`` (2e-3), and token-by-token
     decode logits against the prefill's at the end of a 64-token prompt;
  8. serves deepseek-7b at full size (30 layers, bf16 compute, random
-    weights from a seeded generator on the card): ``make_prefill_step``
+    weights from a seeded generator on the card, initialised in bf16
+    as every served model's are): ``make_prefill_step``
     on 4 x 2048 tokens (30 flash launches per call, each the Hopper
     kernel at hd 128 by its profiler symbol) and
     ``ServeEngine.generate`` on 4 x 64-token prompts, 32 new tokens;
@@ -100,12 +102,25 @@ from import, and exits non-zero on any failure:
     a TPE study past startup, 4 clients, SIGKILL of its leader
     mid-campaign: the gap to the first pair started after the kill,
     every acknowledged tell read back from the promoted leader, whose
-    asks launch ``tpe_score`` on the card, and a new follower attached.
+    asks launch ``tpe_score`` on the card, and a new follower attached;
+15. MoE: qwen2-moe-a2.7b at full width, 2 layers, fp32, its own
+    grouping (1024 tokens, capacity factor 1.25) on 4 x 1024 tokens:
+    on each layer's input the gather/bmm dispatch against the one-hot
+    form (outputs and aux at 2e-4, identical kept (token, k, expert,
+    slot) sets, the dropped assignments counted), flash against ref
+    prefill logits (2e-3), and at a capacity that drops nothing decode
+    logits against the prefill's at the end of a 64-token prompt; then
+    qwen2-moe-a2.7b served at full size (24 layers, 14.3e9 parameters,
+    24 flash launches a prefill by the hd-128 symbol) and mixtral-8x7b at full width cut from 32 to 8 layers
+    (11.9e9; GQA 4:1, window 4096, 8 flash launches a prefill), as
+    phase 8 serves deepseek-7b, with the profiled prefill's device time
+    split into routing, dispatch, expert GEMMs, shared experts and
+    flash.
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
-(each model of it), 12, 13 and 14 and read just after it (a fabric
-worker's counters are its own process's: they start at 0 with it and
-phase 14 reads them before and after each window).  The last three
+(each model of it), 12, 13, 14 and 15 (each served model) and read just
+after it (a fabric worker's counters are its own process's: they start
+at 0 with it and phase 14 reads them before and after each window).  The last three
 lines are the kernels' JSON record, the card's name and power limit
 from nvidia-smi, and the result line.
 """
@@ -116,6 +131,8 @@ import sys
 sys.modules["jax"] = None        # the port must run without JAX ...
 sys.modules["repro"] = None      # ... and without the JAX package
 
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -187,10 +204,14 @@ def event_times_ms(fn, warmup: int = 5, reps: int = 30) -> float:
     return float(np.median(times))
 
 
-def profiled(fn) -> tuple[float, dict[str, tuple[int, float]]]:
+def profiled(fn, ranges: tuple[str, ...] = ()
+             ) -> tuple[float, dict[str, tuple[int, float]]]:
     """Run ``fn`` under the PyTorch profiler.  Returns the wall seconds
     and, per device-side event name, (count, total device µs); an empty
-    dict means the profiler recorded no device activity."""
+    dict means the profiler recorded no device activity.  Each name in
+    ``ranges`` (a ``record_function`` label) adds a key ``"range:<name>"``
+    with its count and the device time of every kernel launched inside
+    it, nested ranges included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -201,9 +222,19 @@ def profiled(fn) -> tuple[float, dict[str, tuple[int, float]]]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # a range also leaves an annotation on the device's timeline: not a
+    # kernel, so not device time
     device = {e.key: (e.count, e.self_device_time_total)
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA}
+              for e in events
+              if e.device_type == DeviceType.CUDA and e.key not in ranges}
+    # a range's CPU-side event: its device time is the sum of the kernels
+    # launched inside it (the annotation's is its span, idle gaps included)
+    if device:
+        device.update({f"range:{e.key}": (e.count, e.device_time_total)
+                       for e in events
+                       if e.device_type == DeviceType.CPU
+                       and e.key in ranges})
     return wall, device
 
 
@@ -761,6 +792,8 @@ BF16, FP32 = torch.bfloat16, torch.float32
 FLASH_CASES = [
     ("deepseek-7b", 4, 32, 32, 2048, 128, BF16, True, None),
     ("zamba2-1.2b", 4, 32, 32, 2048, 64, BF16, True, None),
+    ("qwen2-moe-a2.7b", 4, 16, 16, 2048, 128, BF16, True, None),
+    ("mixtral-8x7b", 4, 32, 8, 2048, 128, BF16, True, 4096),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, BF16, True, None),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, FP32, True, None),
     ("window 4096", 1, 32, 8, 8192, 128, BF16, True, 4096),
@@ -780,7 +813,8 @@ FLASH_CASES = [
     ("unaligned view", 2, 4, 2, 100, 32, BF16, True, None),
     ("unaligned view", 1, 8, 2, 200, 128, BF16, True, None),
 ]
-# the serving shapes, timed: deepseek-7b's (the JSON row) and zamba2's
+# the first four rows are the served prefills' shapes; deepseek-7b's
+# (the JSON row) and zamba2's are timed
 FLASH_TIMED = ("deepseek-7b", "zamba2-1.2b")
 
 
@@ -919,29 +953,60 @@ def model_parity(M, T, E) -> None:
 # --------------------------------------------------------------------- #
 # arch -> (n_layers, d_model) of the published configuration
 FULL_SIZE = {"deepseek-7b": (30, 4096), "zamba2-1.2b": (38, 2048),
-             "rwkv6-7b": (32, 4096)}
+             "rwkv6-7b": (32, 4096), "qwen2-moe-a2.7b": (24, 2048),
+             "mixtral-8x7b": (32, 4096)}
+
+
+@contextlib.contextmanager
+def labelled(labels: dict):
+    """Wrap each function ``labels[module]`` names in a
+    ``record_function`` of its own name while the block runs (the
+    module's callers look it up at each call); yields the names."""
+    saved = []
+    for mod, names in labels.items():
+        for name in names:
+            fn = getattr(mod, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                with torch.profiler.record_function(_name):
+                    return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield tuple(n for names in labels.values() for n in names)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
-                symbols: dict, **impl) -> dict:
+                symbols: dict, n_layers: int | None = None,
+                labels: dict | None = None, **impl) -> dict:
     """Serve ``arch`` at full size in bf16 (random weights from a seeded
-    generator on the card): 1 + 3 + 1 profiled prefills of 4 x 2048
-    tokens, each checked for ``per_prefill`` launches of each kernel and,
-    in the profiled one, for ``symbols[s]`` device launches of each kernel
-    symbol ``s``, then greedy generation.  Every kernel counter is set to
-    0 just before and read just after; returns the counts."""
+    generator on the card, initialised in bf16: no float32 tree;
+    ``n_layers`` cuts the depth only): 1 + 3 + 1 profiled prefills of
+    4 x 2048 tokens, each checked for ``per_prefill`` launches of each
+    kernel and, in the profiled one, for ``symbols[s]`` device launches
+    of each kernel symbol ``s``, then greedy generation.  ``labels`` maps
+    a module to the names of its functions whose device time the
+    profiled prefill reports.  Every kernel counter is set to 0 just before and
+    read just after; returns the counts and the profiled prefill's
+    device events (``profiled``'s)."""
     cfg = M.get_config(arch).replace(**impl)
     check((cfg.n_layers, cfg.d_model) == FULL_SIZE[arch], "not full size")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device="cuda")
+    params = T.init_params(cfg.replace(param_dtype=cfg.dtype), seed=0,
+                           device="cuda")
     engine = E.ServeEngine(cfg, params, max_len=96, device="cuda")
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     n_params = sum(t.numel() for t in M.registry.leaves(engine.params))
     log(f"serve: {arch}, {cfg.n_layers} layers, {n_params} "
-        f"parameters: init (fp32) + cast to {cfg.dtype} in "
+        f"parameters: initialised in {cfg.dtype} in "
         f"{time.perf_counter() - t0:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -974,13 +1039,20 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
         logits = one_prefill()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    wall, device = profiled(one_prefill)
+    with labelled(labels or {}) as names:
+        wall, device = profiled(one_prefill, names)
+    profile = device
     prefill_s = float(np.median(times))
     b, s = batch["tokens"].shape
     log(f"serve prefill {arch}: {b} x {s} tokens, {prefill_s * 1e3:.2f} ms "
         f"median of 3 ({[round(t * 1e3, 2) for t in times]}), "
         f"{b * s / prefill_s:.1f} prefill tokens/s")
     log(breakdown(f"serve prefill {arch} (profiled)", wall, device))
+    for name in names:
+        n, us = device.get(f"range:{name}", (0, 0.0))
+        log(f"serve prefill {arch}: {name} x{n}, {us / 1e3:.3f} ms of device "
+            "time inside it" if device else
+            f"serve prefill {arch}: {name} not measured (no device events)")
     for symbol, n in symbols.items():
         hits = {key: v for key, v in device.items() if symbol in key}
         got = sum(c for c, _ in hits.values())
@@ -1015,7 +1087,167 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
         f"GiB (max_memory_allocated)")
     del engine, logits, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, profile
+
+
+# --------------------------------------------------------------------- #
+# phase 15: MoE on the card
+# --------------------------------------------------------------------- #
+# the functions of ``models/moe.py`` whose device time the profiled MoE
+# prefills report: ``route`` (router product, softmax, top-k, aux) and
+# ``slots`` (the cumsum) are the routing, ``_grouped`` is the dispatch
+# (its gathers and scatters) around ``slots`` and ``_experts`` (the three
+# batched expert products), ``_shared`` the shared experts
+MOE_FNS = ("route", "slots", "_grouped", "_experts", "_shared")
+
+
+def moe_kept(MOE, p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The assignments ``moe_ffn``'s grouped dispatch keeps, as rows
+    (token, k, expert, slot) in token-major order."""
+    xt = x.reshape(-1, x.shape[-1])
+    _, expert_idx, _ = MOE.route(p, cfg, xt)
+    slot, keep, _, _ = MOE.slots(expert_idx, cfg.moe)
+    tok, k = torch.nonzero(keep, as_tuple=True)
+    return torch.stack([tok, k, expert_idx[tok, k], slot[tok, k]], dim=1)
+
+
+def moe_onehot_kept(MOE, p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """``moe_kept`` read off the nonzeros of the one-hot dispatch."""
+    xt = x.reshape(-1, x.shape[-1])
+    _, expert_idx, _ = MOE.route(p, cfg, xt)
+    g, t, k, e, c = torch.nonzero(
+        MOE.onehot_dispatch(expert_idx, cfg.moe, torch.float32),
+        as_tuple=True)
+    Tg, _ = MOE.group_capacity(cfg.moe, expert_idx.shape[0])
+    return torch.stack([g * Tg + t, k, e, c], dim=1)
+
+
+def moe_parity(M, T, E, MOE) -> None:
+    """qwen2-moe-a2.7b at full width, 2 layers, fp32, its own grouping
+    (``group_size`` 1024, capacity factor 1.25) on 4 x 1024 tokens:
+    the gather/bmm dispatch against the one-hot form on each layer's
+    real input (outputs and aux at 2e-4, identical kept (token, k,
+    expert, slot) sets), flash against ref prefill logits (2e-3), then
+    at a capacity that drops nothing (E / top_k) decode logits against
+    the prefill's at the end of a 64-token prompt (2e-3)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = M.get_config("qwen2-moe-a2.7b").replace(n_layers=2,
+                                                   dtype=torch.float32)
+    m = cfg.moe
+    check((cfg.d_model, m.n_experts, m.top_k, m.n_shared, m.group_size,
+           m.capacity_factor) == (2048, 60, 4, 4, 1024, 1.25),
+          "qwen2-moe-a2.7b is not at its published width")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1024), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        x, positions = T.embed_inputs(params, cfg, {"tokens": toks})
+        for i in range(cfg.n_layers):
+            p = T.layer(params["blocks"], i)
+            x = x + A.attention(p["attn"], cfg,
+                                rmsnorm(x, p["norm1"], cfg.norm_eps),
+                                positions)
+            h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+            y, aux = MOE.moe_ffn(p["moe"], cfg, h)
+            y1, aux1 = MOE.moe_ffn_onehot(p["moe"], cfg, h)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all()), "MoE output not finite")
+            torch.testing.assert_close(y, y1, **TOL)
+            torch.testing.assert_close(aux, aux1, **TOL)
+            kept = moe_kept(MOE, p["moe"], cfg, h)
+            check(torch.equal(kept, moe_onehot_kept(MOE, p["moe"], cfg, h)),
+                  f"layer {i}: kept sets differ")
+            Tg, cap = MOE.group_capacity(m, h.shape[0] * h.shape[1])
+            n = h.shape[0] * h.shape[1] * m.top_k
+            log(f"moe parity: qwen2-moe-a2.7b layer {i}, {tuple(h.shape)}, "
+                f"groups of {Tg}, capacity {cap}: gather/bmm vs one-hot max "
+                f"|err| {float((y - y1).abs().max()):.3e}, aux "
+                f"{float(aux):.6f} vs {float(aux1):.6f}; kept sets "
+                f"identical, {n - len(kept)} of {n} assignments dropped")
+            x = x + y
+    flash = E.make_prefill_step(cfg.replace(attn_impl="flash"))(
+        params, {"tokens": toks})
+    ref = E.make_prefill_step(cfg.replace(attn_impl="ref"))(
+        params, {"tokens": toks})
+    torch.cuda.synchronize()
+    check(flash.shape == (*toks.shape, cfg.vocab_size), "prefill shape")
+    check(bool(torch.isfinite(flash).all()), "prefill logits not finite")
+    torch.testing.assert_close(flash, ref, rtol=2e-3, atol=2e-3)
+    prefill_err = float((flash - ref).abs().max())
+    del flash, ref
+
+    nodrop = cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    prompt = toks[:, :64]
+    prefill = E.make_prefill_step(nodrop.replace(attn_impl="flash"))(
+        params, {"tokens": prompt})
+    decode = E.make_decode_step(nodrop)
+    cache = T.init_cache(nodrop, 4, 64, "cuda")
+    for t in range(64):
+        logits, cache = decode(params, cache, prompt[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(logits[:, 0], prefill[:, -1], rtol=2e-3,
+                               atol=2e-3)
+    decode_err = float((logits[:, 0] - prefill[:, -1]).abs().max())
+    log(f"moe parity: qwen2-moe-a2.7b, d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, fp32, {toks.shape[0]} x {toks.shape[1]} "
+        f"tokens: flash vs ref prefill logits max |err| {prefill_err:.3e}; "
+        f"at capacity factor {nodrop.moe.capacity_factor} (no drops) "
+        f"decode vs prefill at position 63 of a 64-token prompt max |err| "
+        f"{decode_err:.3e} (tolerance 2e-3)")
+    del params, cache, logits, prefill
+    torch.cuda.empty_cache()
+
+
+def moe_phase(M, T, E, MOE, FA, kernels: dict) -> dict:
+    """Phase 15: MoE parity, then qwen2-moe-a2.7b served at full size and
+    mixtral-8x7b at full width cut to 8 layers (all 32 take ~93 GB in
+    bf16, more than the card holds); returns the flash launches of the
+    two."""
+    moe_parity(M, T, E, MOE)
+    symbol = FA.ops.kernel_symbol(BF16, 128)
+    qwen, device = serve_phase(M, T, E, kernels, "qwen2-moe-a2.7b",
+                               {"flash_attention": 24}, {symbol: 24},
+                               labels={MOE: MOE_FNS}, attn_impl="flash")
+    log(moe_breakdown("qwen2-moe-a2.7b", device, symbol))
+    full = M.count_params(M.get_config("mixtral-8x7b"))
+    cut = M.count_params(M.get_config("mixtral-8x7b").replace(n_layers=8))
+    log(f"serve: mixtral-8x7b depth cut 32 -> 8 layers: {cut} of {full} "
+        f"parameters ({2 * full / 1e9:.1f} GB in bf16 for all 32)")
+    mixtral, device = serve_phase(M, T, E, kernels, "mixtral-8x7b",
+                                  {"flash_attention": 8}, {symbol: 8},
+                                  n_layers=8, labels={MOE: MOE_FNS},
+                                  attn_impl="flash")
+    log(moe_breakdown("mixtral-8x7b", device, symbol))
+    return {"flash_attention": qwen["flash_attention"]
+            + mixtral["flash_attention"]}
+
+
+def moe_breakdown(arch: str, device: dict, symbol: str) -> str:
+    """The profiled MoE prefill's device time by part, from the
+    ``MOE_FNS`` ranges and the flash kernel's symbol."""
+    if not device:
+        return f"moe breakdown {arch}: not measured (no device events)"
+
+    def ms(name):
+        return device.get(f"range:{name}", (0, 0.0))[1] / 1e3
+    busy = sum(us for k, (_, us) in device.items()
+               if not k.startswith("range:")) / 1e3
+    parts = {"routing": ms("route") + ms("slots"),
+             "dispatch gathers/scatters": ms("_grouped") - ms("slots")
+             - ms("_experts"),
+             "expert GEMMs": ms("_experts"),
+             "shared experts": ms("_shared"),
+             "flash": sum(us for k, (_, us) in device.items()
+                          if symbol in k) / 1e3}
+    parts["the rest (attention projections, norms, LM head)"] = (
+        busy - sum(parts.values()))
+    return (f"moe breakdown {arch} (profiled prefill, device ms of "
+            f"{busy:.3f} busy): " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in parts.items()))
 
 
 # --------------------------------------------------------------------- #
@@ -1952,6 +2184,7 @@ def fabric_phase(core, K) -> dict:
 def breakdown(label: str, wall: float, device: dict) -> str:
     if not device:
         return f"{label}: device time not measured (no device events)"
+    device = {k: v for k, v in device.items() if not k.startswith("range:")}
     busy_us = sum(us for _, us in device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
     return (f"{label}: wall {wall * 1e3:.1f} ms, device busy "
@@ -1975,6 +2208,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mamba2_ssd as SSD
     from repro_torch.kernels import rwkv6_scan as WKV
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2019,7 +2253,7 @@ def main() -> int:
     kernels = {**{n: getattr(K, n) for n in ACQ_OPS},
                "flash_attention": FA.flash_attention, "ssd": SSD.ssd,
                "wkv6": WKV.wkv6}
-    dense = serve_phase(M, T, E, kernels, "deepseek-7b",
+    dense, _ = serve_phase(M, T, E, kernels, "deepseek-7b",
                         {"flash_attention": 30},
                         {FA.ops.kernel_symbol(BF16, 128): 30},
                         attn_impl="flash")
@@ -2029,12 +2263,12 @@ def main() -> int:
     t0 = lap("phase 9", t0)
     ssm_parity(M, T, E)
     t0 = lap("phase 10", t0)
-    hybrid = serve_phase(M, T, E, kernels, "zamba2-1.2b",
+    hybrid, _ = serve_phase(M, T, E, kernels, "zamba2-1.2b",
                          {"ssd": 38, "flash_attention": 6},
                          {SSD.ops.kernel_symbol(BF16, 64, 64): 38,
                           FA.ops.kernel_symbol(BF16, 64): 6},
                          ssm_impl="pallas", attn_impl="flash")
-    rwkv = serve_phase(M, T, E, kernels, "rwkv6-7b", {"wkv6": 32},
+    rwkv, _ = serve_phase(M, T, E, kernels, "rwkv6-7b", {"wkv6": 32},
                        {WKV.ops.kernel_symbol(BF16, 64): 32},
                        ssm_impl="pallas")
     t0 = lap("phase 11", t0)
@@ -2046,12 +2280,16 @@ def main() -> int:
     hpo_launches = hpo_phase(core, K, M, O, D, TR, kernels)
     t0 = lap("phase 13", t0)
     fabric_phase(core, K)
-    lap("phase 14", t0)
+    t0 = lap("phase 14", t0)
+    moe = moe_phase(M, T, E, MOE, FA, kernels)
+    lap("phase 15", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
-    # launches on the serving paths: flash on deepseek-7b's and zamba2's
+    # launches on the serving paths: flash on deepseek-7b's, zamba2's,
+    # qwen2-moe's and mixtral's
     rows["flash_attention"]["launches"] = (dense["flash_attention"]
-                                           + hybrid["flash_attention"])
+                                           + hybrid["flash_attention"]
+                                           + moe["flash_attention"])
     rows["ssd"]["launches"] = hybrid["ssd"]
     rows["wkv6"]["launches"] = rwkv["wkv6"]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -299,6 +299,9 @@ class DurableStorage(InMemoryStorage):
                         f"unreadable snapshot {self._snapshot_path(covers)}: "
                         f"{e.msg}") from e
             self.load_state(snap["state"])
+            # the lease record may sit in a folded segment: the snapshot
+            # carries the epoch (absent in snapshots from before it did)
+            self.lease_epoch = int(snap.get("lease_epoch", 0))
             snapshot_trials = sum(len(s["study"]["trials"])
                                   for s in snap["state"]["studies"])
         for stale in snaps[:-1]:               # superseded snapshots
@@ -590,7 +593,9 @@ class DurableStorage(InMemoryStorage):
             shadow = InMemoryStorage()
             if covers:
                 with open(self._snapshot_path(covers), "rb") as f:
-                    shadow.load_state(json.load(f)["state"])
+                    snap = json.load(f)
+                shadow.load_state(snap["state"])
+                shadow.lease_epoch = int(snap.get("lease_epoch", 0))
             replayed = 0
             for index in sealed:
                 n, _ = load_journal_file(
@@ -598,7 +603,10 @@ class DurableStorage(InMemoryStorage):
                     tolerate_torn_tail=False, repair=False)
                 replayed += n
             new_covers = sealed[-1]
+            # the lease epoch rides beside the state: folding the segment
+            # that journaled it must not reset a recovered store to 0
             blob = json.dumps({"covers": new_covers,
+                               "lease_epoch": shadow.lease_epoch,
                                "state": shadow.state_record()},
                               allow_nan=False).encode()
             tmp = self._snapshot_path(new_covers) + ".tmp"

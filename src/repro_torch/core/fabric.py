@@ -1584,16 +1584,19 @@ class ShardFabric:
             self._replica_seq[wid] = max(self._replica_seq.get(wid, 0),
                                          replicas[-1][0] + 1)
         best_root: str | None = None
-        best = (wp.epoch, -1)            # (lease epoch, records replayed)
+        best = (wp.epoch, -1)            # (lease epoch, mutations)
         for _k, root in replicas:
             try:
-                store, meta = recover_dir_state(root)
+                store, _meta = recover_dir_state(root)
             except Exception:
                 logger.warning("cold start: replica root %s unreadable, "
                                "skipping", root, exc_info=True)
                 continue
+            # within one epoch the leader's root is the furthest along:
+            # rank by the shards' mutation counters, which a snapshot
+            # keeps (the records a recovery replays start after it)
             cand = (int(getattr(store, "lease_epoch", 0) or 0),
-                    int(meta.get("records_replayed") or 0))
+                    sum(store.data_version(s.key) for s in store.studies()))
             if cand[0] > wp.epoch and cand > best:
                 best, best_root = cand, root
         if best_root is None:

@@ -522,9 +522,16 @@ class ReplicationClient:
         for key in [s.key for s in self.storage.studies()]:
             self.storage.drop_shard(key)
         if snap is not None:
-            for srec in json.loads(snap)["state"]["studies"]:
+            snap = json.loads(snap)
+            for srec in snap["state"]["studies"]:
                 self.storage.apply_replicated(
                     {"op": "adopt_shard", "key": srec["key"], "shard": srec})
+            # the lease record the snapshot folded, as the stream would
+            # have carried it
+            epoch = int(snap.get("lease_epoch", 0))
+            if epoch > self.storage.lease_epoch:
+                self.storage.apply_replicated({"op": "lease",
+                                               "epoch": epoch})
         for seg in segments:
             for line in seg["text"].splitlines():
                 line = line.strip()
@@ -567,7 +574,9 @@ def recover_dir_state(root: str) -> tuple[InMemoryStorage, dict[str, Any]]:
     if covers:
         with open(os.path.join(root, f"snapshot-{covers:08d}.json"),
                   "rb") as f:
-            store.load_state(json.load(f)["state"])
+            snap = json.load(f)
+        store.load_state(snap["state"])
+        store.lease_epoch = int(snap.get("lease_epoch", 0))
     segments = sorted(int(m.group(1)) for name in names
                       if (m := _SEG_RE.fullmatch(name)))
     tail = [i for i in segments if i > covers]

@@ -38,7 +38,10 @@ def main(argv: list[str] | None = None) -> int:
     if not cfg.supports_decode:
         print(f"{cfg.name} is encoder-only: no decode step")
         return 1
-    params = transformer.init_params(cfg, args.seed, device)
+    # initialised in cfg.dtype: a model at full size never holds its
+    # float32 tree (qwen2-moe-a2.7b's alone would take 57 GB)
+    params = transformer.init_params(cfg.replace(param_dtype=cfg.dtype),
+                                     args.seed, device)
     eng = ServeEngine(cfg, params,
                       max_len=args.prompt_len + args.new_tokens,
                       device=device)

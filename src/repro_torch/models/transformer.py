@@ -1,7 +1,7 @@
 """The model stack: embedding -> N blocks -> norm -> LM head.
 
 Covers, through ``cfg.block``:
-  * ``attn``   — pre-norm attention + MLP (no MoE)      [dense]
+  * ``attn``   — pre-norm attention + (MLP | MoE)        [dense, moe]
   * ``rwkv6``  — time-mix + channel-mix                  [ssm: rwkv6-7b]
   * ``mamba2`` — pure SSD stack                          [ssm]
   * ``zamba2`` — SSD backbone + weight-tied shared attention block every
@@ -12,8 +12,10 @@ and walked with a Python loop over one ``torch.unbind`` of each stacked
 leaf.  Under autograd each block is checkpointed when ``cfg.remat``
 (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="nothing"``
 keeps only the block's inputs, ``"dots"`` also keeps the outputs of the
-2-D projection and MLP products.  MoE and the audio and vision frontends
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+2-D projection and MLP products.  An MoE block returns its aux loss
+beside its output, and the stack sums it over the layers.  The audio
+and vision frontends raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..core.kernels import resolve_device
 from . import attention as attn_mod
-from . import mamba2, rwkv6
+from . import mamba2, moe as moe_mod, rwkv6
 from .config import ModelConfig
 from .layers import (ParamInit, cross_entropy, init_embedding, init_lm_head,
                      init_mlp, init_rmsnorm, mlp, rmsnorm)
@@ -37,12 +39,9 @@ BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port cannot run yet
-    (MoE, the frontends) and ``ValueError`` for an unknown block."""
+    (the frontends) and ``ValueError`` for an unknown block."""
     if cfg.block not in BLOCKS:
         raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is {_UNPORTED} 3 (MoE)")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is {_UNPORTED} 4 "
@@ -54,11 +53,15 @@ def check_ported(cfg: ModelConfig) -> None:
 # ===================================================================== #
 def _init_attn_block(mk: ParamInit, cfg: ModelConfig,
                      stacked: int | None) -> dict:
-    return {"norm1": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
-            "attn": attn_mod.init_attention(mk, cfg, stacked),
-            "norm2": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
-            "mlp": init_mlp(mk, cfg.d_model, cfg.d_ff, cfg.param_dtype,
-                            cfg.glu, stacked)}
+    p = {"norm1": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
+         "attn": attn_mod.init_attention(mk, cfg, stacked),
+         "norm2": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked)}
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(mk, cfg, stacked)
+    else:
+        p["mlp"] = init_mlp(mk, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                            cfg.glu, stacked)
+    return p
 
 
 def _init_rwkv_block(mk: ParamInit, cfg: ModelConfig,
@@ -164,12 +167,22 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 # ===================================================================== #
 # forward
 # ===================================================================== #
+def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP or MoE on the normed input -> (y, aux loss)."""
+    if "moe" in p:
+        return moe_mod.moe_ffn(p["moe"], cfg, h)
+    return mlp(p["mlp"], h, cfg.act), torch.zeros((), device=h.device)
+
+
 def _attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     x = x + attn_mod.attention(p["attn"], cfg,
                                rmsnorm(x, p["norm1"], cfg.norm_eps),
                                positions)
-    return x + mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg.act)
+    y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
+    return x + y, aux
 
 
 def _rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -186,15 +199,18 @@ def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """Run all blocks (MoE is not ported, so there is no aux loss)."""
+           positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run all blocks -> (x, the MoE aux loss summed over the layers; a
+    float32 zero without MoE)."""
     check_ported(cfg)
     attn_block = _remat(functools.partial(_attn_block, cfg=cfg,
                                           positions=positions), cfg)
     mamba_block = _remat(functools.partial(_mamba_block, cfg=cfg), cfg)
+    aux = torch.zeros((), device=x.device)
     if cfg.block == "attn":
         for p in unstack(params["blocks"], cfg.n_layers):
-            x = attn_block(p, x=x)
+            x, a = attn_block(p, x=x)
+            aux = aux + a
     elif cfg.block in ("rwkv6", "mamba2"):
         fn = (_remat(functools.partial(_rwkv_block, cfg=cfg), cfg)
               if cfg.block == "rwkv6" else mamba_block)
@@ -206,11 +222,11 @@ def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
         for g in range(n_groups):
             for p in group_layers[g * period: (g + 1) * period]:
                 x = mamba_block(p, x=x)
-            x = attn_block(params["shared"], x=x)
+            x, _ = attn_block(params["shared"], x=x)
         if tail:
             for p in unstack(params["mamba_tail"], tail):
                 x = mamba_block(p, x=x)
-    return x
+    return x, aux
 
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
@@ -231,17 +247,18 @@ def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor
 
 def forward(params: dict, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits, moe_aux); moe_aux is 0 (no MoE)."""
+    """Full-sequence forward -> (logits, moe_aux): the MoE layers' aux
+    loss summed over the layers (a float32 zero without MoE)."""
     x, positions = embed_inputs(params, cfg, batch)
-    x = _stack(cfg, params, x, positions)
-    return logits_fn(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _stack(cfg, params, x, positions)
+    return logits_fn(params, cfg, x), aux
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """-> (loss, {"ce", "moe_aux"}): mean token cross-entropy in fp32
     over ``batch["labels"]``, weighted by ``batch["loss_mask"]`` when
-    given; ``moe_aux`` is a zero tensor (MoE is not ported)."""
+    given; ``moe_aux`` is ``forward``'s, added at ``MOE_AUX_COEF``."""
     logits, aux = forward(params, cfg, batch)
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     loss = ce + MOE_AUX_COEF * aux
@@ -290,8 +307,8 @@ def _decode_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     o, kv = attn_mod.decode_attention(p["attn"], cfg, h, kv, cache_len)
     x = x + o
-    return x + mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
-                   cfg.act), kv
+    y, _ = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
+    return x + y, kv
 
 
 def _decode_mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -23,7 +23,8 @@ from ..models.config import ModelConfig
 # group norm), the SSM decay parameters ``a_log``, ``dt_bias`` and
 # ``w0``, and RWKV6's bonus ``u`` (read in float32 by decode; the kernel
 # path casts it to cfg.dtype itself, as the reference does).  Every other
-# floating leaf the reference casts to cfg.dtype at each use.
+# floating leaf the reference casts to cfg.dtype at each use, the MoE
+# router, shared router and expert leaves among them.
 FP32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "q_norm", "k_norm",
                          "norm", "ln_x", "a_log", "dt_bias", "w0", "u"})
 
@@ -38,14 +39,15 @@ def cache_max_len(cfg: ModelConfig, seq_len: int) -> int:
 def cast_params(params: dict, cfg: ModelConfig,
                 device: torch.device) -> dict:
     """The tree on ``device`` with each leaf the reference casts to
-    ``cfg.dtype`` at use already cast (``FP32_LEAVES`` stay as they
-    are)."""
+    ``cfg.dtype`` at use already cast, and ``FP32_LEAVES`` in float32."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
             out[k] = cast_params(v, cfg, device)
-        elif k in FP32_LEAVES or not v.is_floating_point():
+        elif not v.is_floating_point():
             out[k] = v.to(device)
+        elif k in FP32_LEAVES:
+            out[k] = v.to(device=device, dtype=torch.float32)
         else:
             out[k] = v.to(device=device, dtype=cfg.dtype)
     return out
@@ -79,7 +81,10 @@ class ServeEngine:
     casts the weights to ``cfg.dtype`` once, at construction, where the
     reference casts them at each use: the same numbers, without re-reading
     the float32 weights on every step.  It keeps its own cast copy
-    (``self.params``); drop the float32 tree after construction to free it.
+    (``self.params``); drop the float32 tree after construction to free it,
+    or hand it a tree initialised in ``cfg.dtype``
+    (``init_params(cfg.replace(param_dtype=cfg.dtype), ...)``), whose
+    leaves it keeps as they are, but for ``FP32_LEAVES``.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, max_len: int = 256,

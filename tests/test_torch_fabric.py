@@ -14,7 +14,9 @@ reference.
 
 Every wait polls a condition up to a deadline.  Worker start-up is given
 ``spawn_timeout=120`` s: a worker imports torch, which a loaded machine
-slows down, and no check here is about start-up time.
+slows down, and no check here is about start-up time.  A worker wedged
+with SIGSTOP is waited on until all its threads have stopped (on a
+loaded machine a running thread finished a request first).
 """
 import os
 import signal
@@ -66,6 +68,22 @@ def _wait_for(cond, timeout=30.0):
             return True
         time.sleep(0.02)
     return cond()
+
+
+def _stopped(pid: int) -> bool:
+    """Every thread of process ``pid`` is stopped.  ``kill(SIGSTOP)``
+    returns before the last of them has stopped: a thread that is
+    running when the signal arrives stops when it next enters the
+    kernel, and until then the process can still answer a request."""
+    task = Path(f"/proc/{pid}/task")
+    states = []
+    for tid in os.listdir(task):
+        try:
+            stat = (task / tid / "stat").read_text()
+        except FileNotFoundError:            # the thread has exited
+            continue
+        states.append(stat.rpartition(")")[2].split()[0])
+    return bool(states) and all(s in ("T", "t") for s in states)
 
 
 # --------------------------------------------------------------------------- #
@@ -307,6 +325,7 @@ def test_hung_worker_yields_502_not_a_hung_router():
                      if fab.owner_of(s._ensure_key()) != owner)
         fab.kill_worker(owner, sig=signal.SIGSTOP)   # wedge, don't die
         try:
+            assert _wait_for(lambda: _stopped(fab._workers[owner].pid))
             raw = HttpTransport(fab.host, fab.port, timeout=20.0)
             t0 = time.monotonic()
             status, payload, _ = raw.request_full(

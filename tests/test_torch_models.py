@@ -64,8 +64,7 @@ MODELS = {"deepseek": ("deepseek-7b", {}),
 # engine, so that a leaf the engine wrongly casts is caught
 REFERENCE_FP32 = {"norm1", "norm2", "final_norm", "q_norm", "k_norm",
                   "norm", "ln_x", "a_log", "dt_bias", "w0", "u"}
-UNPORTED = ["mixtral-8x7b", "qwen2-moe-a2.7b", "hubert-xlarge",
-            "pixtral-12b"]
+UNPORTED = ["hubert-xlarge", "pixtral-12b"]
 
 
 def _is_reference(name: str) -> bool:
@@ -346,7 +345,8 @@ def test_engine_cast_once_gives_the_per_use_cast_numbers(models):
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b",
                                   "deepseek-67b", "qwen1.5-32b",
-                                  "zamba2-1.2b", "rwkv6-7b"])
+                                  "zamba2-1.2b", "rwkv6-7b",
+                                  "qwen2-moe-a2.7b", "mixtral-8x7b"])
 def test_count_params_matches_reference(reference, arch):
     """Full-size counts: meta-device init against JAX abstract init."""
     want = reference.registry.count_params(

@@ -124,6 +124,44 @@ def test_follower_replays_stream_to_identical_digest(tmp_path):
         storage.close()
 
 
+def test_lease_epoch_survives_compaction(tmp_path):
+    """A lease epoch whose record the compactor folded into a snapshot is
+    still the store's after a restart, a read-only recovery, and in a
+    follower's baseline: a promoted leader's root keeps its epoch for a
+    cold start to find (before the snapshot carried it, every one of
+    them read 0)."""
+    storage = _leader(tmp_path)
+    hub = ReplicationHub(storage)
+    storage.attach_replicator(hub)
+    storage.note_lease(3)
+    _drive(_server(storage=storage), n=4)
+    storage.seal_active()
+    assert storage.compact(min_segments=1) >= 1
+    shadow = _leader(tmp_path, "follower")
+    client = ReplicationClient(shadow, ("127.0.0.1", hub.port)).start()
+    try:
+        assert client.wait_connected()
+        assert client.wait_position(hub.position())
+        assert shadow.state_digest() == storage.state_digest()
+        assert shadow.lease_epoch == 3
+    finally:
+        client.stop()
+        hub.stop()
+        shadow.close()
+    root = storage.root
+    digest = storage.state_digest()
+    storage.close()
+    store, meta = recover_dir_state(root)
+    assert meta["snapshot_covers"] >= 1
+    assert store.lease_epoch == 3 and store.state_digest() == digest
+    reopened = DurableStorage(root, fsync="always")
+    try:
+        assert reopened.lease_epoch == 3
+        assert reopened.state_digest() == digest
+    finally:
+        reopened.close()
+
+
 def test_idle_leader_ships_at_most_one_baseline(tmp_path):
     """An empty leader (stream position 0) serving a fresh follower
     (also at 0) must ship its empty baseline once and then block for
