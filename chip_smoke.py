@@ -32,12 +32,14 @@ from import, and exits non-zero on any failure:
  5. runs the speculative pipeline (depth 64) under 64 client threads;
  6. holds the flash-attention kernels against their plain version on
     the card (the served prefills' shapes: deepseek-7b's, zamba2-1.2b's,
-    qwen2-moe-a2.7b's and mixtral-8x7b's; qwen3-32b's, a 4096 window at
-    S 8192, windows of 200 and 32, S = 96, 100, 200, 300 and
+    qwen2-moe-a2.7b's, mixtral-8x7b's, pixtral-12b's (S 2304, GQA 4:1)
+    and qwen1.5-32b's at its 40 heads and padded to 48; qwen3-32b's, a 4096
+    window at S 8192, windows of 200 and 32, S = 96, 100, 200, 300 and
     1000 with GQA up to 8:1, hd 16 to 128, unaligned views; 2e-4 in fp32,
     2e-2 in bf16) and times the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (the yardstick only; the port
-    never calls it) at deepseek-7b's and zamba2-1.2b's shapes;
+    never calls it) at deepseek-7b's, zamba2-1.2b's, pixtral-12b's and
+    both of qwen1.5-32b's shapes;
  7. deepseek-7b at full width, 2 layers, fp32: prefill logits with
     ``attn_impl="flash"`` against ``"ref"`` (2e-3), and token-by-token
     decode logits against the prefill's at the end of a 64-token prompt;
@@ -115,11 +117,34 @@ from import, and exits non-zero on any failure:
     (11.9e9; GQA 4:1, window 4096, 8 flash launches a prefill), as
     phase 8 serves deepseek-7b, with the profiled prefill's device time
     split into routing, dispatch, expert GEMMs, shared experts and
-    flash.
+    flash;
+16. the frontends and head padding: (a) pixtral-12b at full width, 2
+    layers, fp32, 2 x (256 patches + 512 tokens): flash against ref
+    prefill logits (2e-3), the image positions included; (b)
+    qwen1.5-32b at full width, 2 layers, fp32, its 40/40 heads padded to
+    48/48 (divisor 16, as its prefill cell in ``launch/shapes.py``):
+    padded against unpadded flash prefill logits (2e-4), and the same
+    two trees through the ref attention core as a witness (reported:
+    the gap that the GEMMs of two widths leave without the kernel); (c)
+    pixtral-12b served at full size (40 layers, 12.25e9 parameters) as
+    phase 8 serves deepseek-7b, on 4 x (256 patches + 2048 tokens): 40
+    flash launches a prefill by the hd-128 symbol, the device time as
+    GEMMs, flash and the rest; (d) hubert-xlarge at full size (48
+    layers, 9.45e8 parameters, hd 80): the bf16 encoder forward on 4 x
+    2048 frames (frames/s), then the training step timed with fp32
+    masters, AdamW, remat and the ref attention, one warm-up and 3 timed
+    steps, finite losses (the init's gradient norm overflows at 48
+    layers, so the clipped update is the decay alone;
+    ``tools/frontend_probe.py`` sweeps the norm over depth); no kernel
+    of this repo launched (encoder-only models take the ref attention
+    core); (e) qwen1.5-32b at full width cut from 64 to 8 layers in
+    bf16, unpadded and padded: prefill ms of each on 4 x 2048 tokens, 8
+    flash launches each, the max logit difference reported.
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
-(each model of it), 12, 13, 14 and 15 (each served model) and read just
-after it (a fabric worker's counters are its own process's: they start
+(each model of it), 12, 13, 14, 15 (each served model) and 16 (pixtral's
+serving, hubert's encoding and training steps, each qwen1.5 tree) and read
+just after it (a fabric worker's counters are its own process's: they start
 at 0 with it and phase 14 reads them before and after each window).  The last three
 lines are the kernels' JSON record, the card's name and power limit
 from nvidia-smi, and the result line.
@@ -133,6 +158,7 @@ sys.modules["repro"] = None      # ... and without the JAX package
 
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -155,6 +181,7 @@ BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 # exp2 on the SFUs (MUFU.EX2): 16 results a clock an SM on sm_90 (NVIDIA's
 # table of arithmetic instruction throughput), 132 SMs, 1.98 GHz
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+GEMM_RE = r"nvjet|gemm|cutlass|xmma"     # cuBLAS's kernels, by name
 FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 # the reference's own (tests/kernels/test_ssd_wkv.py)
@@ -794,6 +821,9 @@ FLASH_CASES = [
     ("zamba2-1.2b", 4, 32, 32, 2048, 64, BF16, True, None),
     ("qwen2-moe-a2.7b", 4, 16, 16, 2048, 128, BF16, True, None),
     ("mixtral-8x7b", 4, 32, 8, 2048, 128, BF16, True, 4096),
+    ("pixtral-12b", 4, 32, 8, 2304, 128, BF16, True, None),
+    ("qwen1.5-32b", 4, 40, 40, 2048, 128, BF16, True, None),
+    ("qwen1.5-32b padded", 4, 48, 48, 2048, 128, BF16, True, None),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, BF16, True, None),
     ("qwen3-32b GQA", 2, 64, 8, 1024, 128, FP32, True, None),
     ("window 4096", 1, 32, 8, 8192, 128, BF16, True, 4096),
@@ -813,9 +843,12 @@ FLASH_CASES = [
     ("unaligned view", 2, 4, 2, 100, 32, BF16, True, None),
     ("unaligned view", 1, 8, 2, 200, 128, BF16, True, None),
 ]
-# the first four rows are the served prefills' shapes; deepseek-7b's
-# (the JSON row) and zamba2's are timed
-FLASH_TIMED = ("deepseek-7b", "zamba2-1.2b")
+# the first seven rows are the served prefills' shapes (pixtral-12b's: 256
+# image positions, then 2048 tokens; qwen1.5-32b's 40 heads and the 48
+# they are padded to); deepseek-7b's (the JSON row), zamba2's, pixtral's
+# and both of qwen1.5's are timed
+FLASH_TIMED = ("deepseek-7b", "zamba2-1.2b", "pixtral-12b", "qwen1.5-32b",
+               "qwen1.5-32b padded")
 
 
 def flash_inputs(b, hq, hkv, s, hd, dtype, seed, unaligned=False):
@@ -845,13 +878,13 @@ def time_flash(FA, case: tuple, seed: int) -> dict:
     ms = event_times_ms(lambda: FA.flash_attention(q, k, v), 2, 10)
     plain_ms = event_times_ms(lambda: FA.attention_ref(q, k, v), 2, 10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = event_times_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                2, 10)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             is_causal=True, enable_gqa=hq != hkv)
+    library_ms = event_times_ms(lambda: sdpa(qt, kt, vt), 2, 10)
     symbol = FA.ops.kernel_symbol(dt, hd)
     device = kernel_device_us(lambda: FA.flash_attention(q, k, v), symbol,
                               reps=10)
-    _, sdpa_events = profiled(lambda: [sdpa(qt, kt, vt, is_causal=True)
+    _, sdpa_events = profiled(lambda: [sdpa(qt, kt, vt)
                                        for _ in range(10)])
     sdpa_device = (f"{sum(us for _, us in sdpa_events.values()) / 10:.2f} "
                    "us per call (profiler, all its device events: "
@@ -874,10 +907,12 @@ def time_flash(FA, case: tuple, seed: int) -> dict:
     return fields
 
 
-def check_flash(FA) -> dict:
+def flash_parity(FA, cases: list) -> float:
+    """Each case's kernel output against ``attention_ref`` at
+    ``FLASH_TOL``; returns the largest error."""
     err = 0.0
     for i, (label, b, hq, hkv, s, hd, dt, causal, window) in enumerate(
-            FLASH_CASES):
+            cases):
         q, k, v = flash_inputs(b, hq, hkv, s, hd, dt, 500 + i,
                                unaligned=label == "unaligned view")
         out = FA.flash_attention(q, k, v, causal=causal, window=window)
@@ -894,8 +929,13 @@ def check_flash(FA) -> dict:
             f"{case_err:.3e}")
         del q, k, v, out, ref
         torch.cuda.empty_cache()
-    log(f"flash_attention: {len(FLASH_CASES)} cases agree (max |err| "
+    log(f"flash_attention: {len(cases)} cases agree (max |err| "
         f"{err:.3e})")
+    return err
+
+
+def check_flash(FA) -> dict:
+    err = flash_parity(FA, FLASH_CASES)
 
     timed = {c[0]: c for c in FLASH_CASES if c[0] in FLASH_TIMED}
     fields = [time_flash(FA, timed[label], 500) for label in FLASH_TIMED]
@@ -954,7 +994,8 @@ def model_parity(M, T, E) -> None:
 # arch -> (n_layers, d_model) of the published configuration
 FULL_SIZE = {"deepseek-7b": (30, 4096), "zamba2-1.2b": (38, 2048),
              "rwkv6-7b": (32, 4096), "qwen2-moe-a2.7b": (24, 2048),
-             "mixtral-8x7b": (32, 4096)}
+             "mixtral-8x7b": (32, 4096), "pixtral-12b": (40, 5120),
+             "hubert-xlarge": (48, 1280), "qwen1.5-32b": (64, 5120)}
 
 
 @contextlib.contextmanager
@@ -985,7 +1026,9 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
     """Serve ``arch`` at full size in bf16 (random weights from a seeded
     generator on the card, initialised in bf16: no float32 tree;
     ``n_layers`` cuts the depth only): 1 + 3 + 1 profiled prefills of
-    4 x 2048 tokens, each checked for ``per_prefill`` launches of each
+    4 x 2048 tokens (a vision model's after 256 patch embeddings of its
+    own: 4 x 2304 positions), each checked for ``per_prefill`` launches
+    of each
     kernel and, in the profiled one, for ``symbols[s]`` device launches
     of each kernel symbol ``s``, then greedy generation.  ``labels`` maps
     a module to the names of its functions whose device time the
@@ -1015,6 +1058,14 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
                                      generator=gen, device="cuda")}
+    b, s = batch["tokens"].shape
+    positions, what = s, f"{b} x {s} tokens"
+    if cfg.frontend == "vision":
+        from repro_torch.configs.pixtral_12b import N_PATCHES
+        batch["patch_embeds"] = torch.randn(
+            (b, N_PATCHES, cfg.frontend_dim), generator=gen, device="cuda")
+        positions, what = (s + N_PATCHES,
+                           f"{b} x ({N_PATCHES} patches + {s} tokens)")
     for fn in kernels.values():
         fn.launches = 0
 
@@ -1030,8 +1081,7 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
 
     logits = one_prefill()                        # warm-up
     torch.cuda.synchronize()
-    check(logits.shape == (*batch["tokens"].shape, cfg.vocab_size),
-          "logits shape")
+    check(logits.shape == (b, positions, cfg.vocab_size), "logits shape")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     times = []
     for _ in range(3):
@@ -1043,10 +1093,9 @@ def serve_phase(M, T, E, kernels: dict, arch: str, per_prefill: dict,
         wall, device = profiled(one_prefill, names)
     profile = device
     prefill_s = float(np.median(times))
-    b, s = batch["tokens"].shape
-    log(f"serve prefill {arch}: {b} x {s} tokens, {prefill_s * 1e3:.2f} ms "
+    log(f"serve prefill {arch}: {what}, {prefill_s * 1e3:.2f} ms "
         f"median of 3 ({[round(t * 1e3, 2) for t in times]}), "
-        f"{b * s / prefill_s:.1f} prefill tokens/s")
+        f"{b * positions / prefill_s:.1f} prefill tokens/s")
     log(breakdown(f"serve prefill {arch} (profiled)", wall, device))
     for name in names:
         n, us = device.get(f"range:{name}", (0, 0.0))
@@ -1248,6 +1297,296 @@ def moe_breakdown(arch: str, device: dict, symbol: str) -> str:
     return (f"moe breakdown {arch} (profiled prefill, device ms of "
             f"{busy:.3f} busy): " + ", ".join(f"{k} {v:.3f}"
                                              for k, v in parts.items()))
+
+
+# --------------------------------------------------------------------- #
+# phase 16: the frontends and head padding on the card
+# --------------------------------------------------------------------- #
+PAD_DIVISOR = 16                  # qwen1.5-32b's prefill cell: 40 -> 48
+QWEN_LAYERS = 8      # of 64: all 64 take 70.4 GB in bf16, and the init's
+#                      float32 draw of blocks.mlp.up 35.9 GB more
+HUBERT_BATCH, HUBERT_FRAMES = 4, 2048
+
+
+def device_split(device: dict, symbol: str) -> str:
+    """A profiled prefill's device time as ``device_kinds``' GEMMs, flash
+    (``symbol``) and the rest."""
+    if not device:
+        return "not measured (no device events)"
+    device = {k: v for k, v in device.items() if not k.startswith("range:")}
+    kinds = dict(device_kinds(device))
+    gemm = kinds.get("gemm", (0, 0.0))[1]
+    flash = sum(us for k, (_, us) in device.items() if symbol in k)
+    busy = sum(us for _, us in kinds.values())
+    return (f"device {busy / 1e3:.3f} ms: GEMMs {gemm / 1e3:.3f}, flash "
+            f"{flash / 1e3:.3f}, the rest {(busy - gemm - flash) / 1e3:.3f}")
+
+
+def frontend_parity(M, T, E, SURG, SH) -> None:
+    """(a) pixtral-12b at full width, 2 layers, fp32, 2 x (256 patches +
+    512 tokens): flash against ref prefill logits (2e-3), the image
+    positions included; (b) qwen1.5-32b at full width, 2 layers, fp32,
+    heads padded 40 -> 48 as its prefill cell pads them: the padded
+    tree's flash prefill logits against the unpadded tree's (2e-4)."""
+    from repro_torch.configs.pixtral_12b import N_PATCHES
+
+    cfg = M.get_config("pixtral-12b").replace(n_layers=2, dtype=FP32)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.rope_theta) == (5120, 32, 8, 128, 1e9),
+          "pixtral-12b is not at its published width")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                     generator=gen, device="cuda"),
+             "patch_embeds": torch.randn((2, N_PATCHES, cfg.frontend_dim),
+                                         generator=gen, device="cuda")}
+    flash = E.make_prefill_step(cfg.replace(attn_impl="flash"))(
+        params, batch)
+    ref = E.make_prefill_step(cfg.replace(attn_impl="ref"))(params, batch)
+    torch.cuda.synchronize()
+    check(flash.shape == (2, N_PATCHES + 512, cfg.vocab_size),
+          "prefill shape")
+    check(bool(torch.isfinite(flash).all()), "prefill logits not finite")
+    torch.testing.assert_close(flash, ref, rtol=2e-3, atol=2e-3)
+    diff = (flash - ref).abs()
+    log(f"frontend parity: pixtral-12b, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.n_layers} layers, fp32, 2 x ({N_PATCHES} patches + 512 "
+        f"tokens): flash vs ref prefill logits max |err| "
+        f"{float(diff.max()):.3e} (image positions "
+        f"{float(diff[:, :N_PATCHES].max()):.3e}, text "
+        f"{float(diff[:, N_PATCHES:].max()):.3e}; tolerance 2e-3)")
+    del params, flash, ref, diff
+    torch.cuda.empty_cache()
+
+    cfg = M.get_config("qwen1.5-32b").replace(n_layers=2, dtype=FP32,
+                                               attn_impl="flash")
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+           cfg.qkv_bias) == (5120, 40, 40, 128, True),
+          "qwen1.5-32b is not at its published width")
+    new = SURG.pad_heads_config(cfg, PAD_DIVISOR)
+    cell = SH.configure_for_cell(M.get_config("qwen1.5-32b"),
+                                 SH.SHAPES["prefill_32k"])
+    check((new.n_heads, new.n_kv_heads) == (cell.n_heads, cell.n_kv_heads)
+          == (48, 48), "padded heads")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    padded = SURG.pad_heads_params(params, cfg, new)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                     generator=gen, device="cuda")}
+    want = E.make_prefill_step(cfg)(params, batch)
+    got = E.make_prefill_step(new)(padded, batch)
+    # the witness: both trees through the ref core, no kernel
+    want_ref = E.make_prefill_step(cfg.replace(attn_impl="ref"))(
+        params, batch)
+    got_ref = E.make_prefill_step(new.replace(attn_impl="ref"))(
+        padded, batch)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "padded logits not finite")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    diff = (got - want).abs()
+    share = float((diff / (2e-4 + 2e-4 * want.abs())).max())
+    gap = {"padded vs unpadded, ref core": (got_ref - want_ref),
+           "flash vs ref core, unpadded": (want - want_ref),
+           "flash vs ref core, padded": (got - got_ref)}
+    log(f"frontend parity: qwen1.5-32b, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} -> {new.n_heads} (divisor {PAD_DIVISOR}, QKV "
+        f"bias), {cfg.n_layers} layers, fp32, flash, 2 x 512 tokens: "
+        f"padded vs unpadded prefill logits max |err| "
+        f"{float(diff.max()):.3e}, at most {share:.3f} of the tolerance "
+        f"2e-4 + 2e-4 |logit| (logits up to "
+        f"{float(want.abs().max()):.3e}); witness, max |diff| "
+        + ", ".join(f"{k} {float(v.abs().max()):.3e}"
+                    for k, v in gap.items()))
+    del params, padded, got, want, got_ref, want_ref, diff, gap
+    torch.cuda.empty_cache()
+
+
+def hubert_phase(M, O, D, TR, E, kernels: dict) -> None:
+    """(d) hubert-xlarge at full size (48 layers, hd 80, encoder-only:
+    the ref attention core even under ``attn_impl="flash"``, as in the
+    reference): the bf16 encoder forward on 4 x 2048 frames of the
+    synthetic stream, then the training step (fp32 masters, AdamW,
+    remat, ref attention): one warm-up and 3 timed steps.  Launches no
+    kernel of this repo."""
+    cfg = M.get_config("hubert-xlarge")
+    check((cfg.n_layers, cfg.d_model) == FULL_SIZE["hubert-xlarge"]
+          and cfg.encoder_only and cfg.head_dim == 80, "not full size")
+    check(cfg.remat and cfg.attn_impl == "ref" and cfg.dtype == BF16,
+          "training config")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    opt = O.AdamWConfig(lr=3e-4)
+    t0 = time.perf_counter()
+    state = TR.init_train_state(cfg, opt, seed=0, device="cuda").tree()
+    n_params = sum(t.numel() for t in M.registry.leaves(state["params"]))
+    check(n_params == M.count_params(cfg), "parameter count")
+    data = D.SyntheticLMDataset(D.DataConfig(global_batch=HUBERT_BATCH,
+                                             seq_len=HUBERT_FRAMES), cfg)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in data[i].items()}
+
+    params = E.engine.cast_params(state["params"], cfg,
+                                  torch.device("cuda"))
+    encode = E.make_prefill_step(cfg.replace(attn_impl="flash"))
+    b = batch(0)
+    torch.cuda.synchronize()
+    log(f"hubert: hubert-xlarge, {cfg.n_layers} layers, {n_params} "
+        f"parameters: fp32 masters, AdamW moments and a bf16 copy in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    logits = encode(params, b)
+    torch.cuda.synchronize()
+    check(logits.shape == (HUBERT_BATCH, HUBERT_FRAMES, cfg.vocab_size),
+          "encoder logits shape")
+    check(bool(torch.isfinite(logits).all()), "encoder logits not finite")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        encode(params, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall, device = profiled(lambda: encode(params, b))
+    enc_s = float(np.median(times))
+    frames = HUBERT_BATCH * HUBERT_FRAMES
+    log(f"hubert encode: {HUBERT_BATCH} x {HUBERT_FRAMES} frames, "
+        f"{enc_s * 1e3:.2f} ms median of 3 "
+        f"({[round(t * 1e3, 2) for t in times]}), {frames / enc_s:.1f} "
+        "frames/s")
+    log(breakdown("hubert encode (profiled)", wall, device))
+    if device:
+        log("hubert encode: device time by kind: " + "; ".join(
+            f"{kind} x{c} {us / 1e3:.2f} ms"
+            for kind, (c, us) in device_kinds(device)))
+    del params, logits
+    torch.cuda.empty_cache()
+
+    step = TR.make_train_step(cfg, opt)
+    losses, times = [], []
+    for i in range(4):
+        b = batch(i + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"hubert train step {i + 1}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.6f}, {times[-1] * 1e3:.2f} ms")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    step_s = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"hubert train: {HUBERT_BATCH} x {HUBERT_FRAMES} frames a step, "
+        f"{step_s * 1e3:.2f} ms a step (median of 3 after a warm-up: "
+        f"{[round(t * 1e3, 2) for t in times[1:]]}), {frames / step_s:.1f} "
+        f"frames/s; peak device memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated over the phase, the encoder forward "
+        f"included); "
+        f"model-FLOPs share of the bf16 peak (6 N frames / (step time x "
+        f"989e12)): {6 * n_params * frames / (step_s * BF16_OPS_PER_S):.4f}")
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    check(not any(counts.values()), f"kernel launches in hubert {counts}")
+    del state, b
+    torch.cuda.empty_cache()
+
+
+def padded_serve(M, T, E, SURG, kernels: dict, symbol: str) -> int:
+    """(e) qwen1.5-32b at full width cut to ``QWEN_LAYERS`` layers, bf16:
+    the tree and its heads padded 40 -> 48, each prefilled 1 + 3 + 1
+    (profiled) times on 4 x 2048 tokens through flash (``QWEN_LAYERS``
+    launches a prefill); the max logit difference is reported, not
+    bounded (bf16 GEMMs of two widths may sum in other orders).
+    Returns the flash launches."""
+    full = M.get_config("qwen1.5-32b")
+    check((full.n_layers, full.d_model) == FULL_SIZE["qwen1.5-32b"],
+          "not full size")
+    cfg = full.replace(n_layers=QWEN_LAYERS, attn_impl="flash")
+    new = SURG.pad_heads_config(cfg, PAD_DIVISOR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = E.engine.cast_params(
+        T.init_params(cfg.replace(param_dtype=cfg.dtype), seed=0,
+                      device="cuda"), cfg, torch.device("cuda"))
+    padded = SURG.pad_heads_params(params, cfg, new)
+    n = sum(t.numel() for t in M.registry.leaves(params))
+    n_pad = sum(t.numel() for t in M.registry.leaves(padded))
+    check(n == M.count_params(cfg) and n_pad == M.count_params(new),
+          "parameter counts")
+    torch.cuda.synchronize()
+    log(f"serve: qwen1.5-32b depth cut {full.n_layers} -> {cfg.n_layers} "
+        f"layers: {n} parameters, padded to {new.n_heads}/"
+        f"{new.n_kv_heads} heads {n_pad} (+{n_pad - n}); initialised in "
+        f"{cfg.dtype} in {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     generator=gen, device="cuda")}
+    logits, launches = {}, 0
+    for label, c, p in (("unpadded", cfg, params), ("padded", new, padded)):
+        prefill = E.make_prefill_step(c)
+        for fn in kernels.values():
+            fn.launches = 0
+        logits[label] = prefill(p, batch)                 # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prefill(p, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        wall, device = profiled(lambda: prefill(p, batch))
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        check(counts == {k: 5 * QWEN_LAYERS if k == "flash_attention" else 0
+                         for k in kernels}, f"{label} launches {counts}")
+        got = sum(m for k, (m, _) in device.items() if symbol in k)
+        check(not device or got == QWEN_LAYERS,
+              f"{got} device launches of {symbol}")
+        launches += counts["flash_attention"]
+        ms = float(np.median(times)) * 1e3
+        log(f"serve prefill qwen1.5-32b {label} ({c.n_heads}/"
+            f"{c.n_kv_heads} heads, {QWEN_LAYERS} layers): 4 x 2048 "
+            f"tokens, {ms:.2f} ms median of 3 "
+            f"({[round(t * 1e3, 2) for t in times]}), "
+            f"{4 * 2048 / ms * 1e3:.1f} prefill tokens/s; {symbol} x{got} in "
+            f"the profiled prefill; {device_split(device, symbol)}")
+        log(breakdown(f"serve prefill qwen1.5-32b {label} (profiled)", wall,
+                      device))
+    check(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+          "logits not finite")
+    diff = (logits["padded"] - logits["unpadded"]).abs().max()
+    log(f"serve: qwen1.5-32b padded vs unpadded bf16 prefill logits max "
+        f"|diff| {float(diff):.3e} (reported, not bounded); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, padded, logits, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frontend_phase(M, T, E, O, D, TR, SURG, SH, FA, kernels: dict) -> int:
+    """Phase 16: frontend and surgery parity, pixtral-12b served at full
+    size, hubert-xlarge encoded and its training step timed at full
+    size, qwen1.5-32b served padded and unpadded; returns the flash launches of the
+    served prefills."""
+    symbol = FA.ops.kernel_symbol(BF16, 128)
+    t0 = time.perf_counter()
+    frontend_parity(M, T, E, SURG, SH)
+    t0 = lap("phase 16 (a, b): parity", t0)
+    pixtral, device = serve_phase(M, T, E, kernels, "pixtral-12b",
+                                  {"flash_attention": 40}, {symbol: 40},
+                                  attn_impl="flash")
+    log(f"serve prefill pixtral-12b (profiled): "
+        f"{device_split(device, symbol)}")
+    t0 = lap("phase 16 (c): pixtral-12b", t0)
+    hubert_phase(M, O, D, TR, E, kernels)
+    t0 = lap("phase 16 (d): hubert-xlarge", t0)
+    qwen = padded_serve(M, T, E, SURG, kernels, symbol)
+    lap("phase 16 (e): qwen1.5-32b", t0)
+    return pixtral["flash_attention"] + qwen
 
 
 # --------------------------------------------------------------------- #
@@ -1691,7 +2030,7 @@ def device_kinds(device: dict) -> list[tuple[str, tuple[int, float]]]:
     kinds: dict[str, list] = {}
     for key, (c, us) in device.items():
         k = key.lower()
-        kind = ("gemm" if re.search(r"nvjet|gemm|cutlass|xmma", k) else
+        kind = ("gemm" if re.search(GEMM_RE, k) else
                 "softmax" if "softmax" in k else
                 "reduce" if "reduce" in k else
                 "index" if re.search(r"index|scatter|gather", k) else
@@ -2282,14 +2621,19 @@ def main() -> int:
     fabric_phase(core, K)
     t0 = lap("phase 14", t0)
     moe = moe_phase(M, T, E, MOE, FA, kernels)
-    lap("phase 15", t0)
+    t0 = lap("phase 15", t0)
+    from repro_torch.launch import shapes as SH
+    from repro_torch.models import surgery as SURG
+    frontends = frontend_phase(M, T, E, O, D, TR, SURG, SH, FA, kernels)
+    lap("phase 16", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's, zamba2's,
-    # qwen2-moe's and mixtral's
+    # qwen2-moe's, mixtral's, pixtral's and qwen1.5's
     rows["flash_attention"]["launches"] = (dense["flash_attention"]
                                            + hybrid["flash_attention"]
-                                           + moe["flash_attention"])
+                                           + moe["flash_attention"]
+                                           + frontends)
     rows["ssd"]["launches"] = hybrid["ssd"]
     rows["wkv6"]["launches"] = rwkv["wkv6"]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -41,9 +41,7 @@ def leaves(tree: dict):
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count from a ``meta``-device init (no allocation).
-    Raises ``NotImplementedError`` for the families the port cannot
-    build yet."""
+    """Exact parameter count from a ``meta``-device init (no allocation)."""
     from . import transformer
     params = transformer.init_params(cfg, device="meta")
     return sum(math.prod(p.shape) for p in leaves(params))

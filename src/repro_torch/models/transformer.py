@@ -1,7 +1,7 @@
 """The model stack: embedding -> N blocks -> norm -> LM head.
 
 Covers, through ``cfg.block``:
-  * ``attn``   — pre-norm attention + (MLP | MoE)        [dense, moe]
+  * ``attn``   — pre-norm attention + (MLP | MoE)  [dense, moe, vlm, audio]
   * ``rwkv6``  — time-mix + channel-mix                  [ssm: rwkv6-7b]
   * ``mamba2`` — pure SSD stack                          [ssm]
   * ``zamba2`` — SSD backbone + weight-tied shared attention block every
@@ -14,8 +14,10 @@ leaf.  Under autograd each block is checkpointed when ``cfg.remat``
 keeps only the block's inputs, ``"dots"`` also keeps the outputs of the
 2-D projection and MLP products.  An MoE block returns its aux loss
 beside its output, and the stack sums it over the layers.  The audio
-and vision frontends raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+frontend (hubert) takes the place of the token embedding; the vision
+adapter (pixtral) prepends its patch embeddings to the tokens', and the
+loss scores the text positions only.  Decode is token-only, as the
+reference's is.
 """
 from __future__ import annotations
 
@@ -27,25 +29,25 @@ from torch.utils import checkpoint as ckpt
 
 from ..core.kernels import resolve_device
 from . import attention as attn_mod
-from . import mamba2, moe as moe_mod, rwkv6
+from . import frontends, mamba2, moe as moe_mod, rwkv6
 from .config import ModelConfig
 from .layers import (ParamInit, cross_entropy, init_embedding, init_lm_head,
                      init_mlp, init_rmsnorm, mlp, rmsnorm)
 
-_UNPORTED = "not ported yet: ROADMAP Queue 1 item"
 MOE_AUX_COEF = 0.01
 BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot run yet
-    (the frontends) and ``ValueError`` for an unknown block."""
+    """Raise ``ValueError`` for an unknown block."""
     if cfg.block not in BLOCKS:
         raise ValueError(f"{cfg.name}: unknown block {cfg.block!r}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is {_UNPORTED} 4 "
-            "(the frontends)")
+
+
+def _device(device: Any) -> torch.device:
+    """``"meta"`` (shapes only) or ``resolve_device``'s device."""
+    return (torch.device("meta") if str(device) == "meta"
+            else resolve_device(device))
 
 
 # ===================================================================== #
@@ -90,12 +92,15 @@ def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
     ``torch.Generator`` seeded with ``seed`` on ``device`` (None: CUDA,
     raising without a card).  ``device="meta"`` gives shapes only."""
     check_ported(cfg)
-    dev = (torch.device("meta") if str(device) == "meta"
-           else resolve_device(device))
-    mk = ParamInit(seed, dev)
-    p: dict[str, Any] = {
-        "embed": init_embedding(mk, cfg.vocab_size, cfg.d_model,
-                                cfg.param_dtype)}
+    mk = ParamInit(seed, _device(device))
+    p: dict[str, Any] = {}
+    if cfg.frontend == "audio":
+        p["frontend"] = frontends.init_audio_frontend(mk, cfg)
+    else:
+        p["embed"] = init_embedding(mk, cfg.vocab_size, cfg.d_model,
+                                    cfg.param_dtype)
+    if cfg.frontend == "vision":
+        p["adapter"] = frontends.init_vision_adapter(mk, cfg)
     if cfg.block == "attn":
         p["blocks"] = _init_attn_block(mk, cfg, cfg.n_layers)
     elif cfg.block == "rwkv6":
@@ -109,7 +114,7 @@ def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
             p["mamba_tail"] = _init_mamba_block(mk, cfg, tail)
         p["shared"] = _init_attn_block(mk, cfg, None)     # weight-tied copy
     p["final_norm"] = init_rmsnorm(mk, cfg.d_model, cfg.param_dtype)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend == "audio":     # no embed
         p["lm_head"] = init_lm_head(mk, cfg.d_model, cfg.vocab_size,
                                     cfg.param_dtype)
     return p
@@ -231,10 +236,21 @@ def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (x (B,S,d), positions (S,)).  Rows are gathered before the cast
-    to ``cfg.dtype``: the same numbers as casting the whole table."""
-    tokens = batch["tokens"]
-    x = params["embed"][tokens].to(cfg.dtype)
+    """-> (x (B,S,d), positions (S,)).  Audio: the frontend's frames.
+    Otherwise the token embeddings (rows gathered before the cast to
+    ``cfg.dtype``: the same numbers as casting the whole table), after
+    the vision adapter's patch embeddings when there are images; the
+    positions then run over the image prefix too."""
+    if cfg.frontend == "audio":
+        x = frontends.audio_frontend(params["frontend"], cfg,
+                                     batch["features"],
+                                     batch.get("frame_mask"))
+    else:
+        x = params["embed"][batch["tokens"]].to(cfg.dtype)
+        if cfg.frontend == "vision":
+            img = frontends.vision_adapter(params["adapter"], cfg,
+                                           batch["patch_embeds"])
+            x = torch.cat([img, x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
@@ -258,9 +274,15 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """-> (loss, {"ce", "moe_aux"}): mean token cross-entropy in fp32
     over ``batch["labels"]``, weighted by ``batch["loss_mask"]`` when
-    given; ``moe_aux`` is ``forward``'s, added at ``MOE_AUX_COEF``."""
+    given (audio: by ``batch["frame_mask"]``, the masked frames; vision:
+    over the text positions only, after the image prefix); ``moe_aux``
+    is ``forward``'s, added at ``MOE_AUX_COEF``."""
     logits, aux = forward(params, cfg, batch)
-    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.frontend == "vision":
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    mask = batch.get("frame_mask" if cfg.frontend == "audio"
+                     else "loss_mask")
+    ce = cross_entropy(logits, batch["labels"], mask)
     loss = ce + MOE_AUX_COEF * aux
     return loss, {"ce": ce, "moe_aux": aux}
 
@@ -272,9 +294,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> dict:
     """Per-layer decode state, stacked along layers: the KV cache of the
     attention layers, the SSM state and conv tail of the Mamba2 layers,
-    the WKV state and token-shift carries of the RWKV6 layers."""
+    the WKV state and token-shift carries of the RWKV6 layers, on
+    ``device`` (None: CUDA; ``"meta"``: shapes only)."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     if cfg.block == "attn":
         return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dev,
                                              stacked=cfg.n_layers)}

@@ -64,7 +64,6 @@ MODELS = {"deepseek": ("deepseek-7b", {}),
 # engine, so that a leaf the engine wrongly casts is caught
 REFERENCE_FP32 = {"norm1", "norm2", "final_norm", "q_norm", "k_norm",
                   "norm", "ln_x", "a_log", "dt_bias", "w0", "u"}
-UNPORTED = ["hubert-xlarge", "pixtral-12b"]
 
 
 def _is_reference(name: str) -> bool:
@@ -346,7 +345,8 @@ def test_engine_cast_once_gives_the_per_use_cast_numbers(models):
 @pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b",
                                   "deepseek-67b", "qwen1.5-32b",
                                   "zamba2-1.2b", "rwkv6-7b",
-                                  "qwen2-moe-a2.7b", "mixtral-8x7b"])
+                                  "qwen2-moe-a2.7b", "mixtral-8x7b",
+                                  "hubert-xlarge", "pixtral-12b"])
 def test_count_params_matches_reference(reference, arch):
     """Full-size counts: meta-device init against JAX abstract init."""
     want = reference.registry.count_params(
@@ -439,13 +439,16 @@ def test_launcher_serves_ssm_archs_on_the_cpu(capsys, arch):
     assert f"{arch}-smoke: generated 2x3 tokens" in out
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_at_init(arch):
-    cfg = get_config(arch, smoke=True)          # the config itself loads
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        count_params(cfg)
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "pixtral-12b"])
+def test_frontend_families_init_on_the_cpu(arch):
+    """The audio and vision families build (tests/test_torch_frontends.py
+    holds them against the reference): hubert's frontend takes the
+    embedding's place, pixtral adds its adapter."""
+    cfg = get_config(arch, smoke=True)
+    params = pt.init_params(cfg, device="cpu")
+    assert ("frontend" in params) != ("embed" in params)
+    assert ("adapter" in params) == (cfg.frontend == "vision")
+    assert sum(t.numel() for t in leaves(params)) == count_params(cfg)
 
 
 def test_sequence_parallel_attention_raises(models):
