@@ -139,13 +139,32 @@ from import, and exits non-zero on any failure:
     of this repo launched (encoder-only models take the ref attention
     core); (e) qwen1.5-32b at full width cut from 64 to 8 layers in
     bf16, unpadded and padded: prefill ms of each on 4 x 2048 tokens, 8
-    flash launches each, the max logit difference reported.
+    flash launches each, the max logit difference reported;
+17. the service on the card under the port's sanitizers: the port's
+    repro-check (``repro_torch.analysis``) over its core exits 0 against
+    its empty baseline, its ``--stats`` logged; then
+    ``tools/sanitize_probe.py`` twice in fresh processes on one load,
+    without a sanitizer and with ``install_race()`` before the core is
+    imported: two ``HopaasServer(device="cuda", speculate_depth=64)``
+    behind the event-loop frontend, durable storage with group fsync, a
+    TPE study filled to 1,000 trials, 64 keep-alive client threads for
+    5 s, a GP study told 64 trials and 10 ask/tell pairs.  The
+    sanitized run must show no inversion, stall or race, all 8
+    configured classes instrumented from ``repro_torch.core``, every
+    core lock keyed to its static class, one ``tpe_score`` launch a
+    proposal round, ``matern52_masked`` launches and no module of JAX
+    or the JAX package; both runs' pairs/s and ask p50/p99 and their
+    ratio (the sanitizer's overhead) are reported.  Before them, eight
+    threads make a fresh process's first CUDA linalg call at once: after
+    ``GPSampler(device="cuda")`` none may fail (with PyTorch alone some
+    do, which a sanitized run first met in the GP's speculative worker).
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
-(each model of it), 12, 13, 14, 15 (each served model) and 16 (pixtral's
-serving, hubert's encoding and training steps, each qwen1.5 tree) and read
-just after it (a fabric worker's counters are its own process's: they start
-at 0 with it and phase 14 reads them before and after each window).  The last three
+(each model of it), 12, 13, 14, 15 (each served model), 16 (pixtral's
+serving, hubert's encoding and training steps, each qwen1.5 tree) and 17
+(in each probe process) and read just after it (a fabric worker's
+counters are its own process's: they start at 0 with it and phase 14
+reads them before and after each window).  The last three
 lines are the kernels' JSON record, the card's name and power limit
 from nvidia-smi, and the result line.
 """
@@ -159,6 +178,7 @@ sys.modules["repro"] = None      # ... and without the JAX package
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -2520,6 +2540,141 @@ def fabric_phase(core, K) -> dict:
     return {"tpe_score": parzen, "matern52_masked": matern}
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the service on the card under the port's sanitizers
+# --------------------------------------------------------------------- #
+SANITIZED_CLASSES = 8          # shared_state.DEFAULT_CONFIG["classes"]
+
+
+def static_analysis() -> None:
+    """The port's repro-check over its core against its committed empty
+    baseline, then its coverage counts."""
+    from repro_torch.analysis import cli as AC
+
+    for argv in ([], ["--stats"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = AC.main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"analysis{' --stats' if argv else ''}: {line}")
+        check(rc == 0, f"python -m repro_torch.analysis {' '.join(argv)} "
+              f"exited {rc}")
+
+
+def sanitize_probe(mode: str) -> dict:
+    """``tools/sanitize_probe.py`` in a fresh process (this one has
+    imported the core already, so its locks cannot be wrapped now)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "sanitize_probe.py"),
+         "--sanitize", mode], env=env, capture_output=True, text=True,
+        timeout=240)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0,
+          f"sanitize_probe --sanitize {mode} exited {proc.returncode}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+# eight threads make a process's first CUDA linalg call at once, with
+# PyTorch alone ("torch") or after the port's GP sampler was made ("port")
+LINALG_FIRST_USE = """
+import json, sys, threading
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import torch
+if sys.argv[1] == "port":
+    from repro_torch.core.samplers.gp import GPSampler
+    GPSampler(device="cuda")
+K = torch.eye(64, device="cuda") * 2.0
+torch.cuda.synchronize()
+start = threading.Barrier(8)
+errors = []
+def first():
+    start.wait()
+    try:
+        torch.linalg.cholesky(K)
+    except RuntimeError as e:
+        errors.append(str(e).splitlines()[0])
+threads = [threading.Thread(target=first) for _ in range(8)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+torch.cuda.synchronize()
+print(json.dumps(errors))
+"""
+
+
+def linalg_first_use() -> None:
+    """PyTorch's first CUDA linalg call of a process is not thread-safe
+    (its library loads then); a GP sampler made on the card loads it
+    first, under a lock.  Each side in a fresh process."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    errors = {}
+    for side in ("torch", "port"):
+        proc = subprocess.run([sys.executable, "-c", LINALG_FIRST_USE, side],
+                              env=env, capture_output=True, text=True,
+                              timeout=180)
+        check(proc.returncode == 0, f"linalg first use ({side}) exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        errors[side] = json.loads(proc.stdout.splitlines()[-1])
+    check(errors["port"] == [], f"after GPSampler(device='cuda'): "
+          f"{errors['port']}")
+    log(f"linalg first use, 8 threads at once: PyTorch alone "
+        f"{len(errors['torch'])} of 8 calls raised "
+        f"{sorted(set(errors['torch']))}; after GPSampler(device='cuda') "
+        "0 of 8")
+
+
+def sanitizer_phase(smi: str) -> None:
+    """Phase 17: the static checkers, then one load twice in fresh
+    processes, without a sanitizer and under the race sanitizer."""
+    static_analysis()
+    linalg_first_use()
+    runs = {mode: sanitize_probe(mode) for mode in ("none", "race")}
+    race = runs["race"]
+    for mode, r in runs.items():
+        check(r["foreign"] == [], f"{mode}: loaded {r['foreign']}")
+        check(r["tpe_completed"] >= 1000, f"{mode}: TPE study "
+              f"{r['tpe_completed']} completed")
+        check(r["launches"]["tpe_score"] > 0, f"{mode}: no tpe_score")
+        check(r["launches"]["tpe_score"] == r["tpe_rounds"],
+              f"{mode}: {r['launches']['tpe_score']} tpe_score launches "
+              f"for {r['tpe_rounds']} proposal rounds")
+        check(r["launches"]["matern52_masked"] > 0,
+              f"{mode}: no matern52_masked launches")
+    check(not race["inversions"], f"inversions: {race['inversions']}")
+    check(not race["stalls"], f"stalls: {race['stalls']}")
+    check(not race["races"], f"races: {race['races']}")
+    check(len(race["classes"]) == SANITIZED_CLASSES
+          and all(m.startswith("repro_torch.core.")
+                  for m in race["classes"].values()),
+          f"instrumented classes: {race['classes']}")
+    check(not race["unkeyed_core"], "core locks with no static class: "
+          f"{race['unkeyed_core']}")
+    log(f"sanitizer: {race['lock_classes']} lock classes created "
+        f"({race['locks_created']} locks), {race['edges']} edges observed, "
+        f"{race['unknown']} not in the static graph "
+        f"{race['unknown_edges']}, 0 inversions, 0 stalls; race mode "
+        f"instrumented {len(race['classes'])}/{SANITIZED_CLASSES} classes "
+        f"from repro_torch.core, tracked {race['fields_tracked']} fields, "
+        "0 races")
+    for mode, r in runs.items():
+        log(f"sanitizer {mode}: {r['pairs']} ask/tell pairs in "
+            f"{r['wall_s']:.3f} s, {r['pairs_s']:.1f} pairs/s, ask p50 "
+            f"{r['ask_p50_ms']:.3f} ms p99 {r['ask_p99_ms']:.3f} ms; "
+            f"{r['tpe_rounds']} TPE rounds = {r['launches']['tpe_score']} "
+            f"tpe_score launches, {r['gp_evals']} EI evaluations, "
+            f"{r['launches']['matern52_masked']} matern52_masked launches; "
+            f"load {r['load_s']:.2f} s")
+    none = runs["none"]
+    log(f"sanitizer overhead on the card ({smi}): pairs/s x"
+        f"{race['pairs_s'] / none['pairs_s']:.4f}, ask p50 x"
+        f"{race['ask_p50_ms'] / none['ask_p50_ms']:.4f}, p99 x"
+        f"{race['ask_p99_ms'] / none['ask_p99_ms']:.4f} (race / none)")
+
+
 def breakdown(label: str, wall: float, device: dict) -> str:
     if not device:
         return f"{label}: device time not measured (no device events)"
@@ -2625,7 +2780,9 @@ def main() -> int:
     from repro_torch.launch import shapes as SH
     from repro_torch.models import surgery as SURG
     frontends = frontend_phase(M, T, E, O, D, TR, SURG, SH, FA, kernels)
-    lap("phase 16", t0)
+    t0 = lap("phase 16", t0)
+    sanitizer_phase(smi)
+    lap("phase 17", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's, zamba2's,

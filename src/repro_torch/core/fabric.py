@@ -1397,7 +1397,10 @@ class ShardFabric:
         self._stopped = True
         self._stop_event.set()
         if self._monitor is not None:
-            self._monitor.join(timeout=5.0)
+            # until the monitor has ended: a spawn it has in flight
+            # (a worker takes seconds to come up) is either in the fleet
+            # listed below or terminated by the monitor itself
+            self._monitor.join(timeout=self.spawn_timeout + 30.0)
         if self._frontend is not None:
             self._frontend.stop()
         if self._dispatcher is not None:
@@ -1407,21 +1410,20 @@ class ShardFabric:
             procs += [fp.proc for fols in self._followers.values()
                       for fp in fols]
             procs += [wp.proc for wp in self._deposed]
-        for proc in procs:
-            if proc.poll() is None:
-                proc.terminate()
-        deadline = time.monotonic() + 5.0
-        for proc in procs:
-            timeout = max(0.1, deadline - time.monotonic())
-            try:
-                proc.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=5.0)
+        _terminate(procs)
         if self.storage is not None:
             self.storage.close()
         if self._tmp is not None:
             self._tmp.cleanup()
+
+    def _spawned_late(self, *spawned: _WorkerProc) -> bool:
+        """Whether stop() began while the monitor spawned ``spawned``;
+        if so they are terminated here, since stop() lists the fleet
+        only once the monitor has ended and nothing else would."""
+        if not self._stop_event.is_set():
+            return False
+        _terminate([wp.proc for wp in spawned])
+        return True
 
     # -- addresses ------------------------------------------------------ #
     @property
@@ -1915,6 +1917,8 @@ class ShardFabric:
                 except Exception:
                     logger.exception("respawn of worker %d failed", wid)
                     continue
+                if self._spawned_late(wp):
+                    return
                 with self._fleet_lock:
                     self._workers[wid] = wp
                 self.respawns += 1
@@ -2034,6 +2038,9 @@ class ShardFabric:
             except Exception:
                 logger.exception("follower spawn for worker %d failed",
                                  wid)
+            if self._spawned_late(*fresh):
+                fresh = []
+                break
         with self._fleet_lock:
             self._followers[wid] = fresh
         for fp in stale:
@@ -2062,6 +2069,8 @@ class ShardFabric:
                 logger.exception("follower respawn for worker %d failed",
                                  wid)
                 continue
+            if self._spawned_late(nfp):
+                return
             with self._fleet_lock:
                 self._followers.setdefault(wid, []).append(nfp)
             self.events.append({"event": "follower_respawn", "worker": wid,
@@ -2090,6 +2099,21 @@ class ShardFabric:
                 with self._fleet_lock:
                     with contextlib.suppress(ValueError):
                         self._fence_pending.remove(item)
+
+
+def _terminate(procs: list[subprocess.Popen]) -> None:
+    """Terminate ``procs`` and reap them, killing any that outlive 5 s."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    deadline = time.monotonic() + 5.0
+    for proc in procs:
+        timeout = max(0.1, deadline - time.monotonic())
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=5.0)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
+_linalg_loaded = False
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -139,6 +140,21 @@ def load(name: str, argtypes: tuple):
                 fn.restype = ctypes.c_int
                 _fns[name] = fn
     return fn
+
+
+def load_cuda_linalg(device: torch.device) -> None:
+    """Load PyTorch's CUDA linear-algebra library with one locked call.
+    PyTorch loads it at the first CUDA ``torch.linalg`` call of a process,
+    and that first call is not thread-safe: two threads making it at once
+    fail with "lazy wrapper should be called at most once" (a GP study's
+    request lane and its speculative worker can)."""
+    global _linalg_loaded
+    if _linalg_loaded:
+        return
+    with _lock:
+        if not _linalg_loaded:
+            torch.linalg.cholesky(torch.eye(1, device=device))
+            _linalg_loaded = True
 
 
 def call(name: str, argtypes: tuple, device: torch.device, *args) -> None:

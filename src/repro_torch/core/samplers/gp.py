@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..kernels import matern52_masked, resolve_device
+from ..kernels._backend import load_cuda_linalg
 from ..obs_cache import check_liar
 from ..obs_cache import liar_value as _liar_value
 from ..obs_cache import pad_pow2 as _pad_pow2
@@ -70,6 +71,9 @@ class GPSampler(Sampler):
                  lengthscale: float = 0.25, seed: int = 0,
                  liar: str = "mean", device: str | None = None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # before any thread fits a GP on the card (see the function)
+            load_cuda_linalg(self.device)
         self.n_startup_trials = int(n_startup_trials)
         self.n_candidates = int(n_candidates)
         self.lengthscale = float(lengthscale)

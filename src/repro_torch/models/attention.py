@@ -181,7 +181,7 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.attn_sp:
         raise NotImplementedError(
             "attn_sp (sequence-parallel attention) needs the distributed "
-            "layer, which is not ported: ROADMAP Queue 1 item 5 "
+            "layer, which is not ported: ROADMAP Queue 1 item 3 "
             "(distributed tooling, after repro.dist)")
     q, k, v = _project_qkv(p, cfg, x, positions)
     if cfg.attn_impl == "flash" and not cfg.encoder_only:

@@ -393,6 +393,51 @@ def test_crashed_worker_respawns_with_state_and_requeues_leases():
         fab.stop()
 
 
+def _fabric_children() -> list[int]:
+    """Live (not zombie) worker processes whose parent is this process."""
+    me = str(os.getpid())
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = Path(f"/proc/{pid}/stat").read_text()
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+        except OSError:                      # the process has exited
+            continue
+        state, ppid = stat.rpartition(")")[2].split()[:2]
+        if ppid == me and state != "Z" and b"--serve-worker" in cmd:
+            out.append(int(pid))
+    return out
+
+
+def test_stop_during_respawn_leaves_no_worker_alive():
+    """``stop()`` while the monitor is respawning a killed worker.  The
+    respawned worker comes up only after ``stop()`` has begun, and later
+    than ``stop()`` once waited for the monitor (a worker takes 7-10 s
+    to start on a loaded host): the monitor must end it."""
+    fab = _fabric(workers=2, storage="memory", respawn_poll=0.1)
+    spawning = threading.Event()
+    real_spawn = fab._spawn
+
+    def slow_spawn(*args, **kwargs):
+        wp = real_spawn(*args, **kwargs)
+        if fab._started and threading.current_thread() is fab._monitor:
+            spawning.set()
+            time.sleep(6.0)
+        return wp
+
+    fab._spawn = slow_spawn
+    before = set(_fabric_children())
+    fab.start()
+    try:
+        assert len(set(_fabric_children()) - before) == 2
+        fab.kill_worker(0, sig=signal.SIGKILL)
+        assert spawning.wait(120.0)
+    finally:
+        fab.stop()
+    assert set(_fabric_children()) - before == set()
+    assert fab._monitor is not None and not fab._monitor.is_alive()
+
+
 # --------------------------------------------------------------------------- #
 # in-process router mode (REPRO_WORKERS / HttpServiceRunner(workers=N))
 # --------------------------------------------------------------------------- #

@@ -21,6 +21,8 @@ TF32 is switched off for both matmuls and cuDNN so that any float32
 product taken in this process is full float32.
 """
 import math
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from repro.core.space import SearchSpace as RefSpace  # noqa: E402
 from repro.core.types import Direction as RefDirection  # noqa: E402
 from repro.core.types import Trial as RefTrial  # noqa: E402
 from repro.core.types import TrialState as RefState  # noqa: E402
+from repro_torch.core.kernels import _backend  # noqa: E402
 from repro_torch.core.kernels import matern52_masked_plain  # noqa: E402
 from repro_torch.core.kernels import tpe_score_plain  # noqa: E402
 from repro_torch.core.samplers import make_sampler  # noqa: E402
@@ -226,6 +229,55 @@ def test_gp_suggest_matches_reference():
     out = make_sampler({"name": "gp"}, device="cpu").suggest(
         space, trials, Direction.MINIMIZE, np.random.default_rng(5))
     assert out == ref
+
+
+def test_gp_sampler_on_cuda_loads_linalg_first(monkeypatch):
+    """A GP sampler on the card loads PyTorch's CUDA linalg library when
+    it is made, before a request lane and the speculative worker can
+    make the first linalg call at once (the card's fault)."""
+    loaded = []
+    monkeypatch.setattr(port_gp, "load_cuda_linalg", loaded.append)
+    port_gp.GPSampler(device="cpu")
+    assert loaded == []                     # the CPU makes no such call
+    monkeypatch.setattr(port_gp, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    port_gp.GPSampler(device="cuda")
+    assert loaded == [torch.device("cuda")]
+
+
+def test_load_cuda_linalg_makes_one_call_across_threads(monkeypatch):
+    """Eight threads load at once: one first linalg call is made, and the
+    others wait for it (PyTorch's lazy loader raises on a second
+    concurrent first call; the stand-in below does the same)."""
+    calls, inside, errors = [], [], []
+
+    def first_call(x):
+        if inside:
+            raise RuntimeError("lazy wrapper should be called at most once")
+        inside.append(1)
+        time.sleep(0.2)
+        calls.append(x.device)
+        return x
+
+    monkeypatch.setattr(_backend, "_linalg_loaded", False)
+    monkeypatch.setattr(torch.linalg, "cholesky", first_call)
+    start = threading.Barrier(8)
+
+    def load():
+        start.wait()
+        try:
+            _backend.load_cuda_linalg(torch.device("cpu"))
+        except RuntimeError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10.0)
+    assert errors == [] and calls == [torch.device("cpu")]
+    _backend.load_cuda_linalg(torch.device("cpu"))
+    assert len(calls) == 1
 
 
 def _drive(make, space, trial_cls, state, direction, n, batch=1):
