@@ -157,12 +157,40 @@ from import, and exits non-zero on any failure:
     ratio (the sanitizer's overhead) are reported.  Before them, eight
     threads make a fresh process's first CUDA linalg call at once: after
     ``GPSampler(device="cuda")`` none may fail (with PyTorch alone some
-    do, which a sanitized run first met in the GP's speculative worker).
+    do, which a sanitized run first met in the GP's speculative worker);
+18. trains the hybrid, SSM and MoE families at full width as phase 12
+    trains deepseek-7b (4 x 2048 tokens a step, bf16, remat, ref
+    attention and ref scans, AdamW at lr 3e-4; ``TRAIN_RUNS``):
+    zamba2-1.2b at full size (38 layers), rwkv6-7b cut to 8 of 32
+    layers in 4 microbatches of one row, qwen2-moe-a2.7b cut to 4 of 24
+    layers.  Before each, the gradient norm at init at 1 and 8 layers
+    and the run's depth (it must be finite, and at the run's depth the
+    first step's).  Each run prints phase 12's lines (its step losses,
+    grad norms and times, which must fall below the first step's, or
+    below the second's where the first update raised the loss (rwkv6's
+    does; the reference's rises too), the held-out batch's loss before
+    and after 5 steps, which must fall, ms a step, tokens/s, peak memory, the
+    model-FLOPs share 6 x ``count_active_params`` x tokens / (step x
+    989e12) and for zamba2 also with its shared block counted at each of
+    its 6 applications, the profiled step's busy share and device time by
+    kind, AdamW alone) and a microbatched check: zamba2 2 microbatches
+    against the unsplit step, rwkv6 2 against 4 (loss 1e-2, grad norm
+    1e-3), each with its ref scan's part of a step estimated from the
+    scan timed alone;
+    qwen2-moe the moe_aux and dropped assignments by layer, and
+    the 2-microbatch step's gradients against the mean of its two
+    halves', read from the first moments, within 4x the difference of
+    two identical steps.  Then the bf16 step's gradients against the
+    fp32 step's on one batch of 1 x 2048 (zamba2-1.2b at 8 layers,
+    rwkv6-7b at 2): relative L2 error and cosine by leaf group; then
+    ``python -m repro_torch.launch.train --arch zamba2-1.2b --steps 3
+    --batch 4 --seq 2048`` in a fresh process, which must exit 0 with
+    finite losses; no kernel of this repo launched.
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
 (each model of it), 12, 13, 14, 15 (each served model), 16 (pixtral's
-serving, hubert's encoding and training steps, each qwen1.5 tree) and 17
-(in each probe process) and read just after it (a fabric worker's
+serving, hubert's encoding and training steps, each qwen1.5 tree), 17
+(in each probe process) and 18 and read just after it (a fabric worker's
 counters are its own process's: they start at 0 with it and phase 14
 reads them before and after each window).  The last three
 lines are the kernels' JSON record, the card's name and power limit
@@ -188,6 +216,7 @@ import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import threading  # noqa: E402
 import time  # noqa: E402
+import types  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -1914,19 +1943,200 @@ HELD_OUT = 1000                   # index of a batch no step trains on
 HPO_TRIALS, HPO_MAX_TRIALS = 12, 40
 
 
-def train_phase(M, O, D, TR, kernels: dict) -> None:
-    """deepseek-7b at full width, ``TRAIN_LAYERS`` layers, bf16 compute,
-    remat on, ``attn_impl="ref"`` (the kernels have no backward): one
-    warm-up step, 4 timed steps and a profiled one on 4 x 2048 tokens of
-    the synthetic stream, AdamW at lr 3e-4, with the loss of a held-out
-    batch before and after.  Then one step at lr 0 (the parameters stay)
-    and one with 2 microbatches on the same batch."""
-    full = M.get_config("deepseek-7b")
-    check((full.n_layers, full.d_model) == FULL_SIZE["deepseek-7b"],
+# phase 18: arch -> (layers, microbatches of a step), each at full width on
+# TRAIN_BATCH x TRAIN_SEQ tokens a step (~18 B a parameter of state: fp32
+# masters and moments, the bf16 copy and its gradients)
+TRAIN_RUNS = {
+    "zamba2-1.2b": (38, 1),       # full size: ~19.6 GiB of state
+    # all 32 layers need ~126 GiB; at b 4 the ref WKV's (b, n, Q, Q, nh,
+    # hd) fp32 tensors take 8 GiB each, at b 1 2 GiB
+    "rwkv6-7b": (8, 4),
+    "qwen2-moe-a2.7b": (4, 1)}    # all 24 layers need ~240 GiB
+NORM_DEPTHS = (1, 8)              # and each run's own depth
+# the bf16-against-fp32 reading: arch -> layers, one row of TRAIN_SEQ
+FIDELITY_LAYERS = {"zamba2-1.2b": 8, "rwkv6-7b": 2}
+# its leaf groups, by path prefix: each leaf in exactly one
+LEAF_GROUPS = {
+    "zamba2-1.2b": ("embed", "mamba_groups/mamba", "mamba_groups/norm",
+                    "mamba_tail/mamba", "mamba_tail/norm", "shared/attn",
+                    "shared/mlp", "shared/norm", "final_norm", "lm_head"),
+    "rwkv6-7b": ("embed", "blocks/tmix", "blocks/cmix", "blocks/norm",
+                 "final_norm", "lm_head")}
+LAUNCHER = ("--arch", "zamba2-1.2b", "--steps", "3", "--batch", "4",
+            "--seq", "2048")
+
+
+def tree_items(tree: dict, prefix: str = ""):
+    """(``/``-joined path, leaf) pairs of a nested dict, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def rows(batch: dict, j: int, n: int) -> dict:
+    """Microbatch ``j`` of ``n``: rows j, n + j, ... (the step's split)."""
+    return {k: v[j::n] for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def moe_calls(MOE):
+    """Record each MoE layer's aux loss and its dropped and total (token,
+    k) assignments while the block runs: one entry a layer a forward, in
+    call order (``moe_ffn`` looks ``route`` and ``slots`` up at each
+    call)."""
+    calls: list[list] = []
+    route, slots = MOE.route, MOE.slots
+
+    def routed(*a, **kw):
+        out = route(*a, **kw)
+        calls.append([out[2], 0, 0])
+        return out
+
+    def slotted(*a, **kw):
+        out = slots(*a, **kw)
+        calls[-1][1:] = [(~out[1]).sum(), out[1].numel()]
+        return out
+    MOE.route, MOE.slots = routed, slotted
+    try:
+        yield calls
+    finally:
+        MOE.route, MOE.slots = route, slots
+
+
+def moe_layers(calls: list, n_layers: int) -> str:
+    """``moe_calls``' entries summed over the microbatches, by layer."""
+    out = []
+    for i in range(n_layers):
+        mine = calls[i::n_layers]
+        aux = sum(float(a) for a, _, _ in mine) / len(mine)
+        dropped = sum(int(d) for _, d, _ in mine)
+        total = sum(int(t) for _, _, t in mine)
+        out.append(f"layer {i}: moe_aux {aux:.6f}, {dropped} of {total} "
+                   "assignments dropped")
+    return "; ".join(out)
+
+
+def grad_norms(M, TR, cfg, batch: dict, micro: int, depths,
+               device: str = "cuda") -> dict[int, float]:
+    """The train step's gradient norm at init on ``batch`` for each depth
+    of ``depths``: ``cfg`` cut to that many layers, initialised from seed
+    0 as the trainer does (so the run's own depth gives its first step's
+    norm), its ``cfg.dtype`` copy, the gradients of ``micro`` strided
+    microbatches summed in fp32 (float64 for a float64 tree) and scaled
+    by 1 / ``micro``, each leaf's squares summed in that type as
+    ``global_norm`` sums them.  A leaf the cut model does not use
+    (zamba2's shared block below 6 layers) has a zero gradient."""
+    norms = {}
+    for n in depths:
+        cut = cfg.replace(n_layers=n)
+        weights = TR.step.cast_weights(
+            cut, M.transformer.init_params(cut, seed=0, device=device))
+        leaves = list(M.registry.leaves(weights))
+        acc = [torch.zeros(t.shape, device=t.device,
+                           dtype=torch.promote_types(t.dtype, FP32))
+               for t in leaves]
+        for j in range(micro):
+            loss, _ = M.transformer.loss_fn(weights, cut,
+                                            rows(batch, j, micro))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g)
+            del loss, grads
+        squares = sum(float(torch.sum(torch.square(a))) for a in acc)
+        norms[n] = math.sqrt(squares) / micro
+        del weights, leaves, acc
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return norms
+
+
+def learn(M, D, TR, cfg, opt, micro: int, state: dict, steps: int,
+          tag: str, device: str = "cuda",
+          shape: tuple[int, int] | None = None):
+    """``steps`` train steps of ``opt`` in ``micro`` strided microbatches
+    on the synthetic stream's batches 0, 1, ... of ``shape`` (batch, seq;
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` unless given), each step's loss, grad
+    norm and time logged, with the loss of a held-out batch before and
+    after (an MoE's aux loss and dropped assignments by layer beside it).
+    Returns a namespace: the ``state``; the steps' ``losses``, ``norms``
+    and ``times`` (s); the ``held`` losses (before, after); the ``step``
+    function and ``batch(i)``, the stream's batch ``i`` on ``device``."""
+    n_rows, seq = shape or (TRAIN_BATCH, TRAIN_SEQ)
+    data = D.SyntheticLMDataset(D.DataConfig(global_batch=n_rows,
+                                             seq_len=seq), cfg)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in data[i].items()}
+
+    held = batch(HELD_OUT)
+
+    def held_out_loss(when: str) -> float:
+        """One batch that no step trains on, in the step's microbatches
+        (a mean of equal-sized means)."""
+        with torch.no_grad(), moe_calls(M.moe) as calls:
+            params = TR.step.cast_weights(cfg, state["params"])
+            loss = sum(float(M.transformer.loss_fn(
+                params, cfg, rows(held, j, micro))[0])
+                for j in range(micro)) / micro
+        if cfg.moe is not None:
+            log(f"{tag}: held-out batch {when}: "
+                + moe_layers(calls, cfg.n_layers))
+        return loss
+
+    step = TR.make_train_step(cfg, opt, micro)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    held_before = held_out_loss("before step 1")
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        b = batch(i)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        loss = float(metrics["loss"])
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
+        aux = (f", moe_aux {float(metrics['moe_aux']):.6f}"
+               if cfg.moe is not None else "")
+        log(f"{tag} step {i + 1}: loss {loss:.6f}, grad norm "
+            f"{norms[-1]:.6f}, {times[-1] * 1e3:.2f} ms{aux}")
+    # each step's loss is on another batch, which moves it by ~0.02 here;
+    # the held-out batch's loss before and after has no such noise
+    held_after = held_out_loss(f"after step {steps}")
+    log(f"{tag}: held-out batch {HELD_OUT}: loss {held_before:.6f} before "
+        f"step 1, {held_after:.6f} after step {steps} "
+        f"({held_after - held_before:+.6f})")
+    return types.SimpleNamespace(state=state, losses=losses, norms=norms,
+                                 times=times, held=(held_before, held_after),
+                                 step=step, batch=batch)
+
+
+def train_phase(M, O, D, TR, kernels: dict, arch: str = "deepseek-7b",
+                layers: int = TRAIN_LAYERS, micro: int = 1,
+                tag: str = "train") -> dict:
+    """``arch`` at full width, ``layers`` layers, bf16 compute, remat on,
+    ``attn_impl="ref"`` and ``ssm_impl="ref"`` (the kernels have no
+    backward): ``learn``'s 5 steps (a warm-up and 4 timed; every loss
+    and norm finite, the held-out batch's loss falling, and the fifth
+    step's below the first's, or below the second's where the first
+    update raised the loss) and a
+    profiled one on 4 x 2048 tokens of the synthetic stream in ``micro``
+    strided microbatches, AdamW at lr 3e-4; AdamW alone; then
+    ``split_check`` (an MoE's ``moe_split_check``).  The caller sets the
+    kernel counters to 0; they must still read 0.  Returns ms a step,
+    peak bytes, the model-FLOPs shares and the first step's grad
+    norm."""
+    full = M.get_config(arch)
+    check((full.n_layers, full.d_model) == FULL_SIZE[arch],
           "not full size")
-    cfg = full.replace(n_layers=TRAIN_LAYERS)
-    check(cfg.remat and cfg.attn_impl == "ref" and cfg.dtype == BF16,
-          "training config")
+    cfg = full.replace(n_layers=layers)
+    check(cfg.remat and cfg.attn_impl == "ref" and cfg.ssm_impl == "ref"
+          and cfg.dtype == BF16, "training config")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     opt = O.AdamWConfig(lr=3e-4)
@@ -1934,78 +2144,73 @@ def train_phase(M, O, D, TR, kernels: dict) -> None:
     state = TR.init_train_state(cfg, opt, seed=0, device="cuda").tree()
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in M.registry.leaves(state["params"]))
-    log(f"train: deepseek-7b at full width (d_model {cfg.d_model}, "
+    check(n_params == M.count_params(cfg), "parameter count")
+    depth = (f"depth cut {full.n_layers} -> {cfg.n_layers} layers"
+             if layers < full.n_layers else f"full depth, {layers} layers")
+    log(f"{tag}: {arch} at full width (d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}), depth cut {full.n_layers} -> {cfg.n_layers} "
-        f"layers: {n_params} parameters; fp32 masters and AdamW moments "
-        f"in {time.perf_counter() - t0:.2f} s, "
+        f"{cfg.vocab_size}), {depth}: {n_params} parameters; fp32 masters "
+        f"and AdamW moments in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    data = D.SyntheticLMDataset(D.DataConfig(global_batch=TRAIN_BATCH,
-                                             seq_len=TRAIN_SEQ), cfg)
-
-    def batch(i):
-        return {k: torch.from_numpy(v).to("cuda")
-                for k, v in data[i].items()}
-
-    held = batch(HELD_OUT)
-
-    def held_out_loss():        # one batch that no step trains on
-        with torch.no_grad():
-            params = TR.step.cast_weights(cfg, state["params"])
-            return float(M.transformer.loss_fn(params, cfg, held)[0])
-
-    step = TR.make_train_step(cfg, opt)
-    for fn in kernels.values():
-        fn.launches = 0
-    held_before = held_out_loss()
-    losses, times = [], []
-    for i in range(5):
-        b = batch(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, b)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss)
-        log(f"train step {i + 1}: loss {loss:.6f}, grad norm "
-            f"{float(metrics['grad_norm']):.6f}, {times[-1] * 1e3:.2f} ms")
-    # each step's loss is on another batch, which moves it by ~0.02 here;
-    # the held-out batch's loss before and after has no such noise
-    held_after = held_out_loss()
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[4] < losses[0], f"loss did not fall: {losses}")
-    check(held_after < held_before,
-          f"held-out loss {held_before} -> {held_after}")
-    log(f"train: held-out batch {HELD_OUT}: loss {held_before:.6f} before "
-        f"step 1, {held_after:.6f} after step 5 "
-        f"({held_after - held_before:+.6f})")
+    run = learn(M, D, TR, cfg, opt, micro, state, 5, tag)
+    state, losses, norms, times, held = (run.state, run.losses, run.norms,
+                                         run.times, run.held)
+    step, batch = run.step, run.batch
+    del run
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"losses {losses}, grad norms {norms}")
+    # Adam's first steps move every parameter by ~lr whatever its
+    # gradient: at rwkv6-7b's width that raises the loss, in the reference
+    # as in the port (tests/test_torch_full_width.py); the loss must then
+    # fall below the raised one
+    check(losses[4] < max(losses[0], losses[1]),
+          f"loss did not fall: {losses}")
+    check(held[1] < held[0], f"held-out loss {held[0]} -> {held[1]}")
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.median(times[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, "
+    # the reference's count (launch/dryrun.py's model_flops): 6 x active
+    # parameters x tokens
+    n_active = M.count_active_params(cfg)
+    share = 6 * n_active * tokens / (step_s * BF16_OPS_PER_S)
+    split = f" in {micro} microbatches" if micro > 1 else ""
+    log(f"{tag}: {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step{split}, "
         f"{step_s * 1e3:.2f} ms a step (median of 4 after a warm-up: "
         f"{[round(t * 1e3, 2) for t in times[1:]]}), {tokens / step_s:.1f} "
         f"tokens/s; peak device memory {peak / 2**30:.2f} GiB "
         f"({peak} B, max_memory_allocated); model-FLOPs share of the bf16 "
-        f"peak (6 N tokens / (step time x 989e12)): "
-        f"{6 * n_params * tokens / (step_s * BF16_OPS_PER_S):.4f}")
+        f"peak (6 N tokens / (step time x 989e12)): {share:.4f}")
+    out = {"ms": step_s * 1e3, "peak": peak, "share": share,
+           "norm": norms[0]}
+    if cfg.moe is not None:
+        log(f"{tag}: N is count_active_params, {n_active} of {n_params} "
+            f"(top-{cfg.moe.top_k} of {cfg.moe.n_experts} experts and the "
+            f"{cfg.moe.n_shared} shared)")
+    if cfg.block == "zamba2":
+        n_groups = cfg.n_layers // cfg.shared_attn_period
+        shared = sum(t.numel()
+                     for t in M.registry.leaves(state["params"]["shared"]))
+        tied = n_active + (n_groups - 1) * shared
+        out["share_tied"] = 6 * tied * tokens / (step_s * BF16_OPS_PER_S)
+        log(f"{tag}: counting the weight-tied shared block ({shared} "
+            f"parameters) once for each of its {n_groups} applications "
+            f"(N = {tied}): model-FLOPs share {out['share_tied']:.4f}")
 
     b = batch(5)
-    out = {}
+    res = {}
 
     def one_step():
-        out["state"], out["metrics"] = step(state, b)
+        res["state"], res["metrics"] = step(state, b)
 
     wall, device = profiled(one_step)
-    state = out["state"]
-    check(math.isfinite(float(out["metrics"]["loss"])), "profiled loss")
-    log(breakdown("train step (profiled)", wall, device))
+    state = res["state"]
+    check(math.isfinite(float(res["metrics"]["loss"])), "profiled loss")
+    log(breakdown(f"{tag} step (profiled)", wall, device))
     if device:
         top = sorted(device.items(), key=lambda kv: -kv[1][1])[:5]
-        log("train step: five largest device-time entries: " + "; ".join(
+        log(f"{tag} step: five largest device-time entries: " + "; ".join(
             f"{event_name(k)} x{c} {us / 1e3:.3f} ms" for k, (c, us) in top))
-        log("train step: device time by kind: " + "; ".join(
+        log(f"{tag} step: device time by kind: " + "; ".join(
             f"{kind} x{c} {us / 1e3:.2f} ms"
             for kind, (c, us) in device_kinds(device)))
 
@@ -2018,13 +2223,31 @@ def train_phase(M, O, D, TR, kernels: dict) -> None:
         lambda: O.adamw_update(grads, state["opt_state"], state["params"],
                                O.AdamWConfig(lr=0.0)), warmup=1, reps=3)
     del grads
-    log(f"train: adamw_update alone on the {n_params}-parameter state: "
+    log(f"{tag}: adamw_update alone on the {n_params}-parameter state: "
         f"{adamw_ms:.2f} ms (CUDA events, median of 3, eager)")
 
-    # the loss of any split is the unsplit loss, so the accumulated
-    # gradient's norm is what tests the split and the accumulation
-    b = batch(7)
-    state, m1 = TR.make_train_step(cfg, O.AdamWConfig(lr=0.0))(state, b)
+    check_split = moe_split_check if cfg.moe is not None else split_check
+    state, said = check_split(M, O, TR, cfg, state, batch(7), micro)
+    log(f"{tag}: {said}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the "
+        "phase")
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    check(not any(counts.values()), f"kernel launches in training {counts}")
+    del state, b, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_check(M, O, TR, cfg, state: dict, b: dict, micro: int
+                ) -> tuple[dict, str]:
+    """The batch ``b`` in the run's ``micro`` microbatches (unsplit when
+    1; lr 0, so the parameters stay) and in 2: the loss of any split is
+    the unsplit loss, so the accumulated gradient's norm is what tests the
+    split and the accumulation (loss within 1e-2, grad norm within
+    1e-3).  Returns the state and what it read."""
+    opt = O.AdamWConfig(lr=3e-4)
+    state, m1 = TR.make_train_step(cfg, O.AdamWConfig(lr=0.0), micro)(
+        state, b)
     state, m2 = TR.make_train_step(cfg, opt, n_microbatches=2)(state, b)
     l1, l2 = float(m1["loss"]), float(m2["loss"])
     g1, g2 = float(m1["grad_norm"]), float(m2["grad_norm"])
@@ -2032,16 +2255,235 @@ def train_phase(M, O, D, TR, kernels: dict) -> None:
           f"microbatches=2 loss {l2} against {l1}")
     check(math.isfinite(g2) and abs(g2 - g1) <= 1e-3 * abs(g1),
           f"microbatches=2 grad norm {g2} against {g1}")
-    log(f"train: the same batch unsplit (lr 0) and in 2 microbatches: "
+    what = "unsplit" if micro == 1 else f"in {micro} microbatches"
+    return state, (
+        f"the same batch {what} (lr 0) and in 2 microbatches: "
         f"loss {l1:.6f} / {l2:.6f} (relative {abs(l2 - l1) / abs(l1):.3e}, "
         f"tolerance 1e-2), grad norm {g1:.6f} / {g2:.6f} (relative "
-        f"{abs(g2 - g1) / abs(g1):.3e}, tolerance 1e-3); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over the "
-        "phase")
-    counts = {n: fn.launches for n, fn in kernels.items()}
-    check(not any(counts.values()), f"kernel launches in training {counts}")
-    del state, b, out
+        f"{abs(g2 - g1) / abs(g1):.3e}, tolerance 1e-3)")
+
+
+def moe_split_check(M, O, TR, cfg, state: dict, b: dict, micro: int
+                    ) -> tuple[dict, str]:
+    """An MoE's split regroups the tokens into capacity groups of each
+    microbatch's own, which changes the kept sets: so the 2-microbatch
+    step's gradients are held against the mean of the two half-batch
+    steps' (rows 0, 2 and 1, 3, the same rows as the microbatches), all
+    read exactly from the first moments (lr 0, b1 0, no clipping: m =
+    g; the parameters stay).  The expert dispatch's backward accumulates
+    with atomics, so the tolerance, relative to each leaf's largest
+    gradient, is 4 x the largest such difference between two identical
+    unsplit steps on the first half (0 when they agree bit for bit).  The
+    halves' gradients wait in pinned host memory.  Returns the state and
+    what it read."""
+    check(micro == 1, "an MoE run's timed step is unsplit")
+    opt = O.AdamWConfig(lr=0.0, b1=0.0, grad_clip=0.0)
+    one, two = TR.make_train_step(cfg, opt), TR.make_train_step(cfg, opt, 2)
+    halves = [rows(b, j, 2) for j in range(2)]
+
+    def moments():
+        return list(M.registry.leaves(state["opt_state"]["m"]))
+
+    def rel(t, h):              # max |t - h| over h's largest magnitude
+        h = h.to(t.device, non_blocking=True)
+        return float((t - h).abs().max()
+                     / h.abs().max().clamp(min=1e-30))
+
+    state, m0 = one(state, halves[0])
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+            for t in moments()]
+    state, m0b = one(state, halves[0])
+    ident = max(rel(t, h) for t, h in zip(moments(), host))
+    state, m1 = one(state, halves[1])
+    for t, h in zip(moments(), host):
+        h.copy_((h.to(t.device) + t) * 0.5)
+    state, ms = two(state, b)
+    torch.cuda.synchronize()
+    err = max(rel(t, h) for t, h in zip(moments(), host))
+    tol = 4 * ident
+    losses = [float(m["loss"]) for m in (m0, m0b, m1, ms)]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(err <= tol, f"2-microbatch gradients {err} against the halves' "
+          f"mean, tolerance {tol}")
+    del host
+    return state, (
+        f"two identical unsplit steps on rows 0, 2: losses "
+        f"{losses[0]:.6f} / {losses[1]:.6f}, gradients apart by {ident:.3e} "
+        f"of a leaf's largest at most; the 2-microbatch step's gradients "
+        f"against the mean of the two halves' (rows 0, 2 and 1, 3): "
+        f"{err:.3e} of a leaf's largest at most (tolerance {tol:.3e}); "
+        f"loss {losses[3]:.6f} against the halves' mean "
+        f"{(losses[0] + losses[2]) / 2:.6f}")
+
+
+def bf16_fidelity(M, O, D, TR, arch: str, layers: int
+                  ) -> dict[str, tuple[float, float]]:
+    """``arch`` at full width cut to ``layers`` layers, one row of
+    ``TRAIN_SEQ`` tokens: the train step's gradients with bf16 compute and
+    with fp32 compute (TF32 off) from one set of fp32 masters, read
+    exactly from the first moments (lr 0, b1 0, no clipping); for each
+    leaf group of ``LEAF_GROUPS`` the relative L2 error ||g16 - g32|| /
+    ||g32|| and the cosine, summed in float64.  Readings, not bounds."""
+    cfg = M.get_config(arch).replace(n_layers=layers)
+    opt = O.AdamWConfig(lr=0.0, b1=0.0, grad_clip=0.0)
+    state = TR.init_train_state(cfg, opt, seed=0, device="cuda").tree()
+    data = D.SyntheticLMDataset(D.DataConfig(global_batch=1,
+                                             seq_len=TRAIN_SEQ), cfg)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in data[0].items()}
+    state, m16 = TR.make_train_step(cfg, opt)(state, b)
+    g16 = {k: t.clone() for k, t in tree_items(state["opt_state"]["m"])}
+    state, m32 = TR.make_train_step(cfg.replace(dtype=FP32), opt)(state, b)
+    g32 = dict(tree_items(state["opt_state"]["m"]))
+    groups = {g: [k for k in g32 if k.startswith(g)]
+              for g in LEAF_GROUPS[arch]}
+    check(all(groups.values()) and sorted(sum(groups.values(), []))
+          == sorted(g32), f"leaf groups {groups} against {sorted(g32)}")
+    where = f"bf16 vs fp32 [{arch}, {layers} layers, 1 x {TRAIN_SEQ}]"
+    log(f"{where}: loss {float(m16['loss']):.6f} / "
+        f"{float(m32['loss']):.6f}, grad norm "
+        f"{float(m16['grad_norm']):.6f} / {float(m32['grad_norm']):.6f}")
+    out = {}
+    for name, keys in groups.items():
+        sums = torch.zeros(4, dtype=torch.float64, device="cuda")
+        for k in keys:
+            a, c = g16[k].double(), g32[k].double()
+            sums += torch.stack([((a - c) ** 2).sum(), (c * c).sum(),
+                                 (a * a).sum(), (a * c).sum()])
+        diff, n32, n16, dot = sums.tolist()
+        err = math.sqrt(diff / n32) if n32 else float("nan")
+        cos = dot / math.sqrt(n16 * n32) if n16 * n32 else float("nan")
+        out[name] = (err, cos)
+        log(f"{where}: {name}: {sum(g32[k].numel() for k in keys)} "
+            f"elements, relative L2 error {err:.4e}, cosine {cos:.6f}")
+    del state, g16, g32
     torch.cuda.empty_cache()
+    return out
+
+
+def launcher_run() -> None:
+    """``python -m repro_torch.launch.train`` with ``LAUNCHER``'s
+    arguments in a fresh process: zamba2-1.2b at full size on the card (the
+    launcher's own defaults otherwise); it must exit 0 and print finite
+    losses."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *LAUNCHER], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0, f"launcher exited {out.returncode}: "
+          f"{lines[-5:]} {out.stderr.strip().splitlines()[-5:]}")
+    done = re.search(r"done: (\d+) steps in .*, loss (\S+) -> (\S+)",
+                     out.stdout)
+    check(done is not None and int(done[1]) == 3, f"launcher: {lines}")
+    losses = [float(x) for x in re.findall(r"loss (\S+)", out.stdout)
+              ] + [float(done[3])]
+    check(all(math.isfinite(x) for x in losses), f"launcher: {lines}")
+    log(f"launcher: python -m repro_torch.launch.train {' '.join(LAUNCHER)} "
+        f"exited 0 in {time.perf_counter() - t0:.2f} s: "
+        + " | ".join(line.strip() for line in lines))
+
+
+def scan_share(M, cfg, micro: int, step_ms: float, tag: str) -> float:
+    """An estimate of the ref scan's part of a training step of ``cfg``
+    (Mamba2's ``ssd_chunked``, RWKV6's ``wkv6_chunked``), not a reading of
+    the step: the scan alone at a layer's shape in a microbatch of
+    ``TRAIN_BATCH // micro`` rows, on seeded inputs (the ref scan has no
+    branch on its values, so their scale does not change its work), timed
+    with CUDA events (median of 3): its forward under no_grad (remat's
+    first pass) plus its forward and backward (the recompute and the
+    backward), times the layers and microbatches of a step.  Returns the
+    estimated ms a step."""
+    b, S = TRAIN_BATCH // micro, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, dtype=BF16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype).requires_grad_()
+
+    if cfg.block == "rwkv6":
+        nh, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        logw = (-torch.exp(-0.5 + 0.1 * torch.randn(
+            (b, S, nh, hd), generator=gen, device="cuda"))).requires_grad_()
+        args = (rnd(b, S, nh, hd), rnd(b, S, nh, hd), rnd(b, S, nh, hd),
+                logw, rnd(nh, hd, dtype=FP32, scale=0.1))
+        name = "wkv6_chunked"
+
+        def fn():
+            return M.rwkv6.wkv6_chunked(*args, chunk=64)[0]
+    else:
+        s = cfg.ssm
+        hd, ds = s.head_dim, s.d_state
+        nh = s.expand * cfg.d_model // hd
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, S, nh), generator=gen, device="cuda") - 2).to(BF16)
+        args = (rnd(b, S, nh, hd), dt.requires_grad_(),
+                rnd(nh, dtype=FP32), rnd(b, S, ds), rnd(b, S, ds))
+        name = "ssd_chunked"
+
+        def fn():
+            return M.mamba2.ssd_chunked(*args, chunk=s.chunk)[0]
+    with torch.no_grad():
+        fwd = event_times_ms(fn, warmup=1, reps=3)
+    cot = torch.randn(fn().shape, generator=gen, device="cuda").to(BF16)
+    both = event_times_ms(lambda: torch.autograd.grad(fn(), args, cot),
+                          warmup=1, reps=3)
+    per_step = cfg.n_layers * micro * (fwd + both)
+    log(f"{tag}: the ref scan {name} alone at {b} x {S}: forward "
+        f"{fwd:.2f} ms (no_grad), forward and backward {both:.2f} ms (CUDA "
+        f"events, median of 3); estimated for {cfg.n_layers} layers x "
+        f"{micro} microbatches: {per_step:.2f} of the step's "
+        f"{step_ms:.2f} ms (estimated share {per_step / step_ms:.4f})")
+    del args, cot
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def train_runs_phase(M, O, D, TR, kernels: dict) -> None:
+    """Phase 18: each run of ``TRAIN_RUNS`` at full width, its gradient
+    norm at init by depth (``NORM_DEPTHS`` and its own) before
+    ``train_phase``; then ``bf16_fidelity`` for each of
+    ``FIDELITY_LAYERS`` and ``launcher_run``.  Each SSM run also estimates
+    its ref scan's part of a step from the scan timed alone
+    (``scan_share``).  The kernel counters are set to 0 at its start and must read 0 at its end: no kernel of this
+    repo runs in training."""
+    for fn in kernels.values():
+        fn.launches = 0
+    readings = {}
+    for arch, (layers, micro) in TRAIN_RUNS.items():
+        cfg = M.get_config(arch).replace(n_layers=layers)
+        data = D.SyntheticLMDataset(D.DataConfig(global_batch=TRAIN_BATCH,
+                                                 seq_len=TRAIN_SEQ), cfg)
+        first = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in data[0].items()}
+        t0 = time.perf_counter()
+        norms = grad_norms(M, TR, cfg, first, micro,
+                           sorted({*NORM_DEPTHS, layers}))
+        log(f"train[{arch}]: gradient norm at init on the first batch "
+            f"({TRAIN_BATCH} x {TRAIN_SEQ}, {micro} microbatches) by depth: "
+            + ", ".join(f"{n} layers {g:.4e}" for n, g in norms.items())
+            + f" ({time.perf_counter() - t0:.2f} s)")
+        check(all(math.isfinite(g) for g in norms.values()),
+              f"{arch}: gradient norm overflows at depth: {norms}")
+        readings[arch] = train_phase(M, O, D, TR, kernels, arch, layers,
+                                     micro, tag=f"train[{arch}]")
+        if cfg.block in ("zamba2", "rwkv6"):
+            scan_share(M, cfg, micro, readings[arch]["ms"], f"train[{arch}]")
+        check(abs(readings[arch]["norm"] - norms[layers])
+              <= 1e-2 * norms[layers],
+              f"{arch}: step 1's grad norm {readings[arch]['norm']} against "
+              f"the probe's {norms[layers]}")
+    for arch, layers in FIDELITY_LAYERS.items():
+        bf16_fidelity(M, O, D, TR, arch, layers)
+    launcher_run()
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    check(not any(counts.values()), f"kernel launches in phase 18 {counts}")
+    log("phase 18: " + "; ".join(
+        f"{arch} {TRAIN_RUNS[arch][0]} layers {r['ms']:.2f} ms a step, "
+        f"peak {r['peak'] / 2**30:.2f} GiB, model-FLOPs share "
+        f"{r['share']:.4f}" + (f" ({r['share_tied']:.4f} tied)"
+                               if "share_tied" in r else "")
+        for arch, r in readings.items()))
 
 
 def device_kinds(device: dict) -> list[tuple[str, tuple[int, float]]]:
@@ -2769,6 +3211,8 @@ def main() -> int:
     from repro_torch import data as D
     from repro_torch import optim as O
     from repro_torch import train as TR
+    for fn in kernels.values():
+        fn.launches = 0
     train_phase(M, O, D, TR, kernels)
     t0 = lap("phase 12", t0)
     hpo_launches = hpo_phase(core, K, M, O, D, TR, kernels)
@@ -2782,7 +3226,9 @@ def main() -> int:
     frontends = frontend_phase(M, T, E, O, D, TR, SURG, SH, FA, kernels)
     t0 = lap("phase 16", t0)
     sanitizer_phase(smi)
-    lap("phase 17", t0)
+    t0 = lap("phase 17", t0)
+    train_runs_phase(M, O, D, TR, kernels)
+    lap("phase 18", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's, zamba2's,

@@ -43,8 +43,8 @@ from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.train import (Trainer, TrainerConfig,  # noqa: E402
                                make_train_step)
 from test_torch_models import reference  # noqa: E402,F401  (the stub)
-from test_torch_train import (_batch, _close_leaf, _items,  # noqa: E402
-                              _torch_batch)
+from test_torch_train import (_batch, _close_leaf,  # noqa: E402
+                              _exact_grads, _items, _torch_batch)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -453,6 +453,31 @@ def test_train_step_matches_reference(ref, models, micro):
             np.abs(got[key].float().numpy() - want),
             1e-4 * (np.abs(want) + np.abs(want).max()) + carried + 1e-30,
             err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-grouped", "mixtral-grouped"])
+def test_bf16_moe_split_gives_the_mean_of_the_halves(ref, models, name):
+    """What phase 18 of ``chip_smoke.py`` holds qwen2-moe-a2.7b to on the
+    card, exactly on the CPU: a 2-microbatch bf16 step's gradients (read
+    from the first moments) are the fp32 mean of the two half-batch
+    steps' (rows 0, 2 and 1, 3, the strided split), bit for bit.  With
+    groups of 32 tokens, two rows of 16, each half regroups its rows, so
+    the kept sets and the aux loss's load fractions are the halves' own
+    and the split's gradients differ from the unsplit step's."""
+    rcfg, pcfg, rparams, _ = models(name, {**DROPS, "group_size": 32})
+    pcfg = pcfg.replace(dtype=torch.bfloat16)
+    rstate = {"params": rparams, "opt_state": ref.optim.adamw_init(
+        rparams, ref.optim.AdamWConfig())}
+    batch = _batch(pcfg, b=4)
+    whole = _exact_grads(pcfg, rstate, batch, 1)
+    halves = [_exact_grads(pcfg, rstate,
+                           {k: v[j::2] for k, v in batch.items()}, 1)
+              for j in range(2)]
+    split = _exact_grads(pcfg, rstate, batch, 2)
+    assert split.keys() == whole.keys()
+    for key, g in split.items():
+        assert torch.equal(g, (halves[0][key] + halves[1][key]) * 0.5), key
+    assert not all(torch.equal(g, whole[k]) for k, g in split.items())
 
 
 def test_trainer_loss_decreases_on_an_moe_model():
