@@ -187,10 +187,26 @@ from import, and exits non-zero on any failure:
     --batch 4 --seq 2048`` in a fresh process, which must exit 0 with
     finite losses; no kernel of this repo launched.
 
+19. ``repro_torch.dist`` and the dry run against the card: (a) a
+    one-rank NCCL group and a ``(1, 1)`` ``("data", "model")`` CUDA mesh;
+    deepseek-7b's full-size bf16 weights (phase 8's) distributed by
+    ``RULES_DECODE`` as DTensors; a 4 x 2048 prefill with flash and
+    ``attn_sp`` (the kernel gets each device's local q, k, v) against
+    the plain-tensor prefill (2e-2), 30 flash launches; (b) on that mesh
+    the dry run's own ``build_cell`` with seeded tensors: deepseek-7b's
+    prefill (full size, 4 x 2048, ``configure_for_cell``'s blocked
+    attention) and phase 12's train step (8 layers, 4 x 2048), each run
+    once under ``FlopCounterMode`` with the peak from
+    ``max_memory_allocated``, against the dry run's prediction on a
+    ``(1, 1)`` mesh of the fake group (``measure_cell``: FLOPs equal,
+    peak within 10%); (c) ``launch.dryrun.run_cell`` for deepseek-7b's
+    three cells and qwen1.5-32b's prefill_32k on the production 16 x 16
+    mesh on the card's host, one record line each.
+
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
 (each model of it), 12, 13, 14, 15 (each served model), 16 (pixtral's
 serving, hubert's encoding and training steps, each qwen1.5 tree), 17
-(in each probe process) and 18 and read just after it (a fabric worker's
+(in each probe process), 18 and 19 and read just after it (a fabric worker's
 counters are its own process's: they start at 0 with it and phase 14
 reads them before and after each window).  The last three
 lines are the kernels' JSON record, the card's name and power limit
@@ -3117,6 +3133,157 @@ def sanitizer_phase(smi: str) -> None:
         f"{race['ask_p99_ms'] / none['ask_p99_ms']:.4f} (race / none)")
 
 
+# --------------------------------------------------------------------- #
+# phase 19: repro_torch.dist and the dry run against the card
+# --------------------------------------------------------------------- #
+DIST_ARCH = "deepseek-7b"
+# 19b's two steps on the (1, 1) mesh: (cell, its shape here, layers)
+DIST_JOBS = (("prefill_32k", ("prefill_4x2048", 2048, 4, "prefill"), None),
+             ("train_4k", ("train_4x2048", 2048, 4, "train"), TRAIN_LAYERS))
+# 19c: the production cells run on the card's host
+DIST_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
+              ("deepseek-7b", "decode_32k"), ("qwen1.5-32b", "prefill_32k"))
+PEAK_TOL = 0.10
+
+
+def dtensor_prefill(M, T, E, FA, mesh) -> int:
+    """(a) deepseek-7b at full size in bf16 (phase 8's seeded weights and
+    engine), its parameters distributed by ``RULES_DECODE`` over the
+    ``(1, 1)`` CUDA mesh: a prefill of 4 x 2048 with flash and
+    ``attn_sp`` (each device's local q, k, v into the kernel) against
+    the plain-tensor prefill of phase 8 (2e-2; the same local ops run).
+    The flash counter is set to 0 just before and read just after: 30."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun as DRY
+    cfg = M.get_config(DIST_ARCH).replace(attn_impl="flash")
+    check((cfg.n_layers, cfg.d_model) == FULL_SIZE[DIST_ARCH],
+          "not full size")
+    params = T.init_params(cfg.replace(param_dtype=cfg.dtype), seed=0,
+                           device="cuda")
+    engine = E.ServeEngine(cfg, params, max_len=96, device="cuda")
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     generator=gen, device="cuda")}
+    want = E.make_prefill_step(cfg)(engine.params, batch)
+    sp = cfg.replace(attn_sp=True)
+    dparams = shd.distribute(engine.params, T.param_specs(sp), mesh,
+                             shd.RULES_DECODE)
+    del engine
+    torch.cuda.empty_cache()
+    FA.flash_attention.launches = 0
+    with DRY.step_context(mesh, shd.batch_axis(mesh, 4, shd.RULES_DECODE)):
+        got = E.make_prefill_step(sp)(dparams, batch)
+    torch.cuda.synchronize()
+    launches = FA.flash_attention.launches
+    check(isinstance(got, DTensor), "the DTensor prefill returned no DTensor")
+    err = float((got.full_tensor().float() - want.float()).abs().max())
+    log(f"dist (a): {DIST_ARCH} full size, bf16, on the (1, 1) mesh "
+        f"({mesh.device_type}, {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        f"), RULES_DECODE, flash + attn_sp: logits against the plain "
+        f"prefill max |diff| {err:.3e} (tolerance 2e-2), {launches} flash "
+        "launches")
+    check(err <= 2e-2, f"DTensor prefill logits differ by {err}")
+    check(launches == 30, f"{launches} flash launches, expected 30")
+    del got, want, dparams, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def measured_steps(DRY, SH, mesh) -> dict:
+    """(b), on the card: each of ``DIST_JOBS`` built by the dry run's own
+    ``build_cell`` on the CUDA mesh (seeded weights and inputs), run once
+    under ``FlopCounterMode``; peak from ``max_memory_allocated`` after
+    ``reset_peak_memory_stats``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    out = {}
+    for name, shape, layers in DIST_JOBS:
+        shape = SH.Shape(*shape)
+        torch.cuda.empty_cache()
+        step, state, cfg = DRY.build_cell(DIST_ARCH, name, mesh, layers, 1,
+                                          shape=shape, cell_micro=1,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counter = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        with DRY.step_context(mesh, DRY._batch_axis(shape, 1, mesh)), \
+                counter:
+            res = step()
+        torch.cuda.synchronize()
+        out[name] = {"flops": counter.get_total_flops(),
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "before": before, "layers": cfg.n_layers,
+                     "s": time.perf_counter() - t0}
+        del step, state, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_phase(M, T, E, FA, kernels: dict) -> int:
+    """Phase 19: (a) ``dtensor_prefill``; (b) the dry run's predicted
+    FLOPs and peak bytes of ``DIST_JOBS`` on a ``(1, 1)`` mesh of the
+    fake group against ``measured_steps`` (FLOPs equal, peak within
+    ``PEAK_TOL``); (c) ``run_cell`` on ``DIST_CELLS`` on the production
+    16 x 16 mesh, one record line each.  Returns the flash launches."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import shapes as SH
+    for fn in kernels.values():
+        fn.launches = 0
+    mesh = MESH.make_local_mesh(1, 1, "cuda")
+    try:
+        launches = dtensor_prefill(M, T, E, FA, mesh)
+        got = measured_steps(DRY, SH, mesh)
+    finally:
+        dist.destroy_process_group()
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    check(counts == {n: launches if n == "flash_attention" else 0
+                     for n in counts}, f"kernel launches in (b) {counts}")
+    props = torch.cuda.get_device_properties(0)
+    log(f"dist: total_memory {props.total_memory} B "
+        f"({props.total_memory / 2**30:.2f} GiB); launch.mesh.HBM_PER_CHIP "
+        f"{MESH.HBM_PER_CHIP}")
+    fmesh = MESH.make_fake_mesh((1, 1))
+    for name, shape, layers in DIST_JOBS:
+        t0 = time.perf_counter()
+        want, _ = DRY.measure_cell(DIST_ARCH, name, fmesh,
+                                   shape=SH.Shape(*shape), units=layers,
+                                   micro=1)
+        m = got[name]
+        ratio = want["live"] / m["peak"]
+        log(f"dist (b): {DIST_ARCH} {shape[0]} ({m['layers']} layers): "
+            f"predicted {want['flops']:.6e} FLOPs, {want['live']} B peak "
+            f"({want['live'] / 2**30:.2f} GiB; dry run "
+            f"{time.perf_counter() - t0:.1f} s); measured on the card "
+            f"{m['flops']:.6e} FLOPs (FlopCounterMode), {m['peak']} B "
+            f"({m['peak'] / 2**30:.2f} GiB; max_memory_allocated, "
+            f"{m['before'] / 2**30:.2f} GiB allocated before the step, "
+            f"{m['s']:.2f} s); predicted/measured peak {ratio:.4f}")
+        check(want["flops"] == m["flops"],
+              f"{name}: predicted FLOPs {want['flops']} != {m['flops']}")
+        check(abs(ratio - 1) <= PEAK_TOL,
+              f"{name}: predicted peak off by {ratio - 1:+.3f}")
+    for arch, name in DIST_CELLS:
+        rec = DRY.run_cell(arch, name, False, verbose=True)
+        r, mem = rec["roofline"], rec["memory"]
+        log("dist (c): " + json.dumps({
+            "arch": arch, "shape": name, "mesh": rec["mesh"],
+            "seconds": rec["seconds"],
+            "live_gib": round(mem["live_bytes_per_device"] / 2**30, 3),
+            "fits_hbm": mem["fits_hbm"],
+            "compute_ms": round(r["compute_s"] * 1e3, 3),
+            "memory_ms": round(r["memory_s"] * 1e3, 3),
+            "collective_ms": round(r["collective_s"] * 1e3, 3),
+            "dominant": r["dominant"],
+            "roofline_fraction": round(r["roofline_fraction"], 5)}))
+    dist.destroy_process_group()
+    return launches
+
+
 def breakdown(label: str, wall: float, device: dict) -> str:
     if not device:
         return f"{label}: device time not measured (no device events)"
@@ -3228,15 +3395,18 @@ def main() -> int:
     sanitizer_phase(smi)
     t0 = lap("phase 17", t0)
     train_runs_phase(M, O, D, TR, kernels)
-    lap("phase 18", t0)
+    t0 = lap("phase 18", t0)
+    dist_launches = dist_phase(M, T, E, FA, kernels)
+    lap("phase 19", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's, zamba2's,
-    # qwen2-moe's, mixtral's, pixtral's and qwen1.5's
+    # qwen2-moe's, mixtral's, pixtral's and qwen1.5's, and deepseek-7b's
+    # DTensor prefill
     rows["flash_attention"]["launches"] = (dense["flash_attention"]
                                            + hybrid["flash_attention"]
                                            + moe["flash_attention"]
-                                           + frontends)
+                                           + frontends + dist_launches)
     rows["ssd"]["launches"] = hybrid["ssd"]
     rows["wkv6"]["launches"] = rwkv["wkv6"]
     keys = ("name", "route", "source", "replaces", "launches",

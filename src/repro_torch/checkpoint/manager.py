@@ -13,8 +13,9 @@ restores in the other): one ``.npz`` per step whose keys are the
 ``/``-joined dict paths of the leaves (``params/blocks/attn/wq``,
 ``opt_state/step``), bf16 stored as fp32 (exact), plus a ``.meta`` JSON.
 Trees are nested dicts of tensors (or numpy arrays).  The reference's
-``shardings`` argument has no counterpart: the port does not shard;
-``restore_tree`` puts each leaf on the device and dtype of ``like``'s.
+``shardings`` argument has no counterpart: checkpoints hold plain
+tensors, not DTensors; ``restore_tree`` puts each leaf on the device and
+dtype of ``like``'s.
 """
 from __future__ import annotations
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ...dist.context import is_dtensor
+
 PACKAGE = Path(__file__).resolve().parents[2]     # src/repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -155,6 +157,17 @@ def load_cuda_linalg(device: torch.device) -> None:
         if not _linalg_loaded:
             torch.linalg.cholesky(torch.eye(1, device=device))
             _linalg_loaded = True
+
+
+def no_dtensor(op: str, *tensors) -> None:
+    """Raise ``TypeError`` if a wrapper got a DTensor: it hands its
+    kernel raw pointers of one device's memory, and it never runs its
+    plain version in place of the kernel for one."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{op} takes plain tensors (its kernel gets raw pointers), got "
+            "a DTensor: run it on each device's shard through "
+            "torch.distributed.tensor.experimental.local_map or .to_local()")
 
 
 def call(name: str, argtypes: tuple, device: torch.device, *args) -> None:

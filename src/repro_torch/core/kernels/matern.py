@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from ._backend import call, count_launch
+from ._backend import call, count_launch, no_dtensor
 
 _SQRT5 = math.sqrt(5.0)
 MAX_DIM = 512          # widest point the kernel takes
@@ -108,6 +108,7 @@ def matern52_cross(a: torch.Tensor, b: torch.Tensor, ls: torch.Tensor
     """(A, B) Matérn-5/2 cross-covariance of two point sets on the unit
     cube with per-dim lengthscales ``ls``.  All float32 on one device: one
     kernel launch on a CUDA device, the plain version on the CPU."""
+    no_dtensor("matern52_cross", a, b, ls)
     if a.device.type == "cpu":
         return matern52_cross_plain(a, b, ls)
     out = _matern_cuda(a, b, ls, None, None, None)
@@ -127,6 +128,7 @@ def matern52_masked(a: torch.Tensor, b: torch.Tensor, ls: torch.Tensor,
     All float32 on one device: one kernel launch on a CUDA device, the
     plain version on the CPU.
     """
+    no_dtensor("matern52_masked", a, b, ls, row_mask, col_mask)
     if a.device.type == "cpu":
         return matern52_masked_plain(a, b, ls, row_mask, col_mask, jitter)
     out = _matern_cuda(a, b, ls, row_mask, col_mask, jitter)

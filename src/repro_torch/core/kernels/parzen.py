@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from ._backend import call, count_launch
+from ._backend import call, count_launch, no_dtensor
 
 CLUSTER = 8            # blocks of a cluster: the row slices of one tile
 THREADS = 256          # threads of a block
@@ -162,6 +162,7 @@ def parzen_log_density(x: torch.Tensor, obs: torch.Tensor,
     device: one kernel launch on a CUDA device, the plain version on the
     CPU.
     """
+    no_dtensor("parzen_log_density", x, obs, mask, bw)
     if x.device.type == "cpu":
         return parzen_log_density_plain(x, obs, mask, bw)
     out = _parzen_cuda(x, [(obs, mask, bw)])
@@ -181,6 +182,7 @@ def tpe_score(cands: torch.Tensor, xg: torch.Tensor, mg: torch.Tensor,
     All float32 on one device: one kernel launch on a CUDA device, the
     plain version on the CPU.
     """
+    no_dtensor("tpe_score", cands, xg, mg, xb, mb, bw, bw_b)
     if cands.device.type == "cpu":
         return tpe_score_plain(cands, xg, mg, xb, mb, bw, bw_b)
     out = _parzen_cuda(cands, [(xg, mg, bw), (xb, mb, bw_b)])

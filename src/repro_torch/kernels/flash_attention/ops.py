@@ -23,7 +23,8 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import aligned_rows, call, count_launch
+from ...core.kernels._backend import (aligned_rows, call, count_launch,
+                                      no_dtensor)
 from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -88,6 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, Hq, hd); k,v: (B, T, Hkv, hd) -> (B, S, Hq, hd) in q's
     dtype.  fp32 or bf16, hd in ``HEAD_DIMS``; causal masking is top-left
     aligned (q and k positions both start at 0)."""
+    no_dtensor("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)

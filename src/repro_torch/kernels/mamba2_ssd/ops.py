@@ -20,7 +20,8 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import aligned_rows, call, count_launch
+from ...core.kernels._backend import (aligned_rows, call, count_launch,
+                                      no_dtensor)
 from . import ref
 
 MAX_CHUNK = 64
@@ -82,6 +83,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     -> (y (b,S,nh,hd) in x's dtype, h_final (b,nh,hd,ds) float32).
     Matches ``ref.ssd_ref``.  x, dt, B and C share one type, float32 or
     bfloat16; the kernel takes chunk <= 64 and hd, ds in ``DIMS``."""
+    no_dtensor("ssd", x, dt, a_log, B, C)
     Q = _check(x, dt, a_log, B, C, chunk)
     if x.device.type == "cpu":
         return ref.ssd_ref(x, dt, a_log, B, C)

@@ -21,7 +21,8 @@ import ctypes
 
 import torch
 
-from ...core.kernels._backend import aligned_rows, call, count_launch
+from ...core.kernels._backend import (aligned_rows, call, count_launch,
+                                      no_dtensor)
 from . import ref
 
 MAX_CHUNK = 64
@@ -87,6 +88,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> (o (b,S,nh,hd) in r's dtype, S_final (b,nh,hd,hd) float32).
     Matches ``ref.wkv6_ref``.  r, k, v and logw share one type, float32
     or bfloat16; the kernel takes chunk <= 64 and hd in ``HEAD_DIMS``."""
+    no_dtensor("wkv6", r, k, v, logw, u, S0)
     Q = _check(r, k, v, logw, u, S0, chunk)
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, logw, u, S0)

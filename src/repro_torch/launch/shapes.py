@@ -19,14 +19,14 @@ Skips:
 Nothing here runs a cell: it is the per-cell configuration (the one
 caller of ``models.surgery``) and the inputs' shapes and types.
 
-``configure_for_cell`` returns the reference's deployment on a TPU mesh,
-which one H100 does not run as it stands: prefill cells get
-``attn_impl="blocked"`` (plain PyTorch, not the flash kernel), some
-train and prefill cells ``attn_sp=True`` (which the port's attention
-refuses until the sharding exists), tuned decode_32k cells the int8
+``configure_for_cell`` returns the reference's deployment on its
+production mesh, which the dry run (``launch/dryrun.py``) runs on
+DTensors: prefill cells get ``attn_impl="blocked"`` (plain PyTorch, not
+the flash kernel), some train and prefill cells ``attn_sp=True``
+(sequence-parallel attention over the mesh's model axis; outside a mesh
+context it changes nothing), tuned decode_32k cells the int8
 ``kv_quant``, and heads padded for a 16-way model axis.  A runner of
-these cells on the card sets ``attn_impl="flash"`` and drops ``attn_sp``
-itself.
+these cells on one card sets ``attn_impl="flash"`` itself.
 """
 from __future__ import annotations
 

@@ -7,6 +7,15 @@ softmax in plain PyTorch.
 
 Layouts are the reference's: activations (B, S, H, hd), ``wq`` (d, H,
 hd), ``wo`` (H, hd, d), caches (B, Smax, Hkv, hd).  Positions are 1-D.
+
+On DTensors (``repro_torch.dist``) each device runs the core on its own
+queries against all the keys they see (``_local_core``): the flash
+kernel on its local q, k and v, the ``blocked`` and ``ref`` cores too,
+with the shard's query positions.  ``cfg.attn_sp`` makes the attention
+sequence-parallel over the axis that ``dist.context.attention_seq_axis``
+names, as the reference's does; outside such a context it changes
+nothing.  Decode runs on the shards too, except over a head_dim-sharded
+cache (GQA heads that do not divide the mesh), which stays DTensor ops.
 """
 from __future__ import annotations
 
@@ -14,6 +23,9 @@ import math
 
 import torch
 
+from ..dist import shard_ops
+from ..dist.context import (constrain_attn_seq, constrain_batch,
+                            constrain_seq, is_dtensor)
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ModelConfig
 from .layers import ParamInit, apply_rope, rmsnorm
@@ -24,50 +36,85 @@ NEG = -1e30
 def init_attention(mk: ParamInit, cfg: ModelConfig,
                    stacked: int | None = None) -> dict:
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
-    p = {"wq": mk((*L, d, h, hd), dt),
-         "wk": mk((*L, d, kv, hd), dt),
-         "wv": mk((*L, d, kv, hd), dt),
-         "wo": mk((*L, h, hd, d), dt)}
+    q_ax, kv_ax = (*A, "heads", "head_dim"), (*A, "kv_heads", "head_dim")
+    p = {"wq": mk((*L, d, h, hd), dt, (*A, "embed", "heads", "head_dim")),
+         "wk": mk((*L, d, kv, hd), dt, (*A, "embed", "kv_heads", "head_dim")),
+         "wv": mk((*L, d, kv, hd), dt, (*A, "embed", "kv_heads", "head_dim")),
+         "wo": mk((*L, h, hd, d), dt, (*A, "heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        p["bq"] = mk((*L, h, hd), dt, init="zeros")
-        p["bk"] = mk((*L, kv, hd), dt, init="zeros")
-        p["bv"] = mk((*L, kv, hd), dt, init="zeros")
+        p["bq"] = mk((*L, h, hd), dt, q_ax, init="zeros")
+        p["bk"] = mk((*L, kv, hd), dt, kv_ax, init="zeros")
+        p["bv"] = mk((*L, kv, hd), dt, kv_ax, init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = mk((*L, hd), dt, init="ones")
-        p["k_norm"] = mk((*L, hd), dt, init="ones")
+        p["q_norm"] = mk((*L, hd), dt, (*A, "head_dim"), init="ones")
+        p["k_norm"] = mk((*L, hd), dt, (*A, "head_dim"), init="ones")
     return p
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
-    """(B, S, d) x (d, H, hd) -> (B, S, H, hd), product in ``dtype``."""
+    """(B, S, d) x (d, H, hd) -> (B, S, H, hd), product in ``dtype``.  A
+    DTensor weight whose head_dim is sharded (its heads do not divide
+    the mesh axis) is gathered along it first: folding a sharded head_dim
+    into the heads is not a layout every PyTorch's DTensor can make."""
     d, h, hd = w.shape
-    return (x @ w.to(dtype).reshape(d, h * hd)).unflatten(-1, (h, hd))
+    if is_dtensor(w) and any(p.is_shard(2) for p in w.placements):
+        from torch.distributed.tensor import Replicate
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if p.is_shard(2) else p for p in w.placements])
+    return shard_ops.matmul(x, w.to(dtype).reshape(d, h * hd)).unflatten(
+        -1, (h, hd))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype
               ) -> torch.Tensor:
-    """(B, S, H, hd) x (H, hd, d) -> (B, S, d)."""
+    """(B, S, H, hd) x (H, hd, d) -> (B, S, d).  A DTensor whose
+    sequence is sharded (``attn_sp``) is projected batched over B: a
+    plain product would fold B and S into one dim, which DTensor cannot
+    do to a sharded S in every PyTorch version."""
     h, hd, d = wo.shape
-    return out.reshape(*out.shape[:2], h * hd) @ wo.to(dtype).reshape(
-        h * hd, d)
+    if is_dtensor(wo) and any(p.is_shard(1) for p in wo.placements):
+        from torch.distributed.tensor import Replicate     # as in _proj
+        wo = wo.redistribute(wo.device_mesh, [
+            Replicate() if p.is_shard(1) else p for p in wo.placements])
+    x, w = out.reshape(*out.shape[:2], h * hd), wo.to(dtype).reshape(h * hd, d)
+    if is_dtensor(x) and any(p.is_shard(1) for p in x.placements):
+        return torch.bmm(x, w.expand(x.shape[0], h * hd, d))
+    return shard_ops.matmul(x, w)
+
+
+def _laid_out_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A bias or norm weight over ``x``'s trailing dims, gathered on every
+    mesh dim where ``x`` does not shard the same dim (``_proj`` gathers a
+    head_dim-sharded weight, so q comes out whole there): then the add
+    or product is local, where DTensor would otherwise pick a layout."""
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    off = x.ndim - w.ndim
+    pl = [p if p.is_shard() and x.placements[i] == Shard(p.dim + off)
+          else Replicate() for i, p in enumerate(w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(
+        w.device_mesh, pl)
 
 
 def _project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj(x, p["wq"], cfg.dtype)
-    k = _proj(x, p["wk"], cfg.dtype)
-    v = _proj(x, p["wv"], cfg.dtype)
+    xq, xk, xv = shard_ops.fan_out(x, 3)
+    q = _proj(xq, p["wq"], cfg.dtype)
+    k = _proj(xk, p["wk"], cfg.dtype)
+    v = _proj(xv, p["wv"], cfg.dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(cfg.dtype)
-        k = k + p["bk"].to(cfg.dtype)
-        v = v + p["bv"].to(cfg.dtype)
+        q = q + _laid_out_as(p["bq"], q).to(cfg.dtype)
+        k = k + _laid_out_as(p["bk"], k).to(cfg.dtype)
+        v = v + _laid_out_as(p["bv"], v).to(cfg.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, _laid_out_as(p["q_norm"], q), cfg.norm_eps)
+        k = rmsnorm(k, _laid_out_as(p["k_norm"], k), cfg.norm_eps)
     if not cfg.encoder_only:           # hubert uses learned conv pos (stubbed)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -116,12 +163,13 @@ def _ref_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def _blocked_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, block_k: int = 512, q_chunks: int = 4
-                  ) -> torch.Tensor:
+                  v: torch.Tensor, block_k: int = 512, q_chunks: int = 4,
+                  q_offset: int = 0) -> torch.Tensor:
     """Memory-bounded attention: online softmax streamed over kv blocks
     (never materializes the S x T score matrix).  For causal attention
     the q dim is split into ``q_chunks`` chunks so kv blocks entirely
-    above the diagonal (or left of the window) are not computed."""
+    above the diagonal (or left of the window) are not computed.  The
+    queries sit at positions ``q_offset`` on (a shard of the sequence)."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -164,52 +212,130 @@ def _blocked_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         return out.to(cfg.dtype)
 
     if not causal:
-        return run_chunk(q, 0, 0, T)
+        return run_chunk(q, q_offset, 0, T)
     nq = q_chunks if S % q_chunks == 0 and S >= q_chunks else 1
     Sc = S // nq
     outs = []
     for i in range(nq):
-        lo = 0 if window is None else max(0, i * Sc - window)
-        outs.append(run_chunk(q[:, i * Sc: (i + 1) * Sc], i * Sc, lo,
-                              min(T, (i + 1) * Sc)))
+        q0 = q_offset + i * Sc
+        lo = 0 if window is None else max(0, q0 - window)
+        outs.append(run_chunk(q[:, i * Sc: (i + 1) * Sc], q0, lo,
+                              min(T, q0 + Sc)))
     return torch.cat(outs, dim=1)
+
+
+def _on_shards(q, k, v, core, scales=()) -> torch.Tensor:
+    """``core(q_l, k_l, v_l, s0, *scales_l)`` on each device's shards of
+    the DTensors q, k and v, its output laid out as q: q keeps its batch,
+    sequence or heads sharding (any other is gathered); k and v (and the
+    int8 cache's (B, T) ``scales``) keep a batch sharding like q's, and
+    k and v heads sharded with q's whole groups; the rest is gathered,
+    so that every device holds all the keys its queries see and the
+    scores never leave it; the gradients of k and v gathered over a
+    mesh dim on which q is sharded are partial sums over its shards.
+    ``s0`` is the shard's first query position."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    tq, tkv = [], []
+    for n, pq in zip(mesh.shape, q.placements):
+        pq = pq if pq.is_shard() and pq.dim < 3 else Replicate()
+        tq.append(pq)
+        whole_groups = pq.is_shard(2) and Hkv % n == 0
+        tkv.append(pq if pq.is_shard(0) or whole_groups else Replicate())
+    rows = [p if p.is_shard(0) else Replicate() for p in tkv]
+    q = q.redistribute(mesh, tq)
+    gkv = [Partial() if b.is_replicate() and a.is_shard() else b
+           for a, b in zip(tq, tkv)]
+    k_l, v_l = (t.redistribute(mesh, tkv).to_local(grad_placements=gkv)
+                for t in (k, v))
+    scales_l = [t.redistribute(mesh, rows).to_local() for t in scales]
+    q_l = q.to_local()
+    _, (_, s0, h0, _) = compute_local_shape_and_global_offset(
+        q.shape, mesh, tq)
+    if q_l.shape[2] != Hq and k_l.shape[2] == Hkv:
+        # q's heads sharded, k and v whole: each local q head's kv head
+        idx = (h0 + torch.arange(q_l.shape[2], device=q_l.device)) // (
+            Hq // Hkv)
+        k_l, v_l = k_l[:, :, idx], v_l[:, :, idx]
+    out = core(q_l, k_l, v_l, s0, *scales_l)
+    return shard_ops.wrap(out.contiguous(), mesh, tq, q.shape)
+
+
+def _local_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
+                impl: str) -> torch.Tensor:
+    """The full-sequence core (``impl``: the flash kernel, ``blocked`` or
+    ``ref``) on DTensors, each device on its own queries
+    (``_on_shards``), with the shard's query positions.  The flash
+    kernel takes no query offset, so a sequence-sharded q raises for it
+    (ROADMAP Queue 1 item 3)."""
+    S = q.shape[1]
+
+    def core(q_l, k_l, v_l, s0):
+        S_l = q_l.shape[1]
+        if impl == "flash":
+            if S_l != S:
+                raise NotImplementedError(
+                    "flash attention on a sequence-sharded q: the kernel "
+                    "has no query offset for a sharded causal mask; use "
+                    "attn_impl 'ref' or 'blocked' (ROADMAP Queue 1 item 3)")
+            return fa_ops.flash_attention(q_l, k_l, v_l, causal=True,
+                                          window=cfg.sliding_window)
+        if impl == "blocked":
+            return _blocked_core(cfg, q_l, k_l, v_l, q_offset=s0)
+        return _ref_core(cfg, q_l, k_l, v_l, positions[s0:s0 + S_l],
+                         positions)
+    return _on_shards(q, k, v, core)
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention (train / prefill)."""
-    if cfg.attn_sp:
-        raise NotImplementedError(
-            "attn_sp (sequence-parallel attention) needs the distributed "
-            "layer, which is not ported: ROADMAP Queue 1 item 3 "
-            "(distributed tooling, after repro.dist)")
     q, k, v = _project_qkv(p, cfg, x, positions)
-    if cfg.attn_impl == "flash" and not cfg.encoder_only:
+    if cfg.attn_sp:
+        # sequence-parallel attention (context-provided axis): q seq
+        # sharded, kv replicated on that axis -> scores stay local
+        q, k, v, _ = constrain_attn_seq(q, k, v)
+    flash = cfg.attn_impl == "flash" and not cfg.encoder_only
+    if is_dtensor(q):
+        out = _local_core(cfg, q, k, v, positions,
+                          "flash" if flash else cfg.attn_impl)
+    elif flash:
         out = fa_ops.flash_attention(q, k, v, causal=True,
                                      window=cfg.sliding_window)
     elif cfg.attn_impl == "blocked":
         out = _blocked_core(cfg, q, k, v)
     else:
         out = _ref_core(cfg, q, k, v, positions, positions)
+    if cfg.attn_sp:
+        # leave the seq-parallel region at the block boundary, as the
+        # reference does, so that the MLP sees batch-sharded rows
+        out = constrain_seq(out)
+        return constrain_batch(_out_proj(out, p["wo"], cfg.dtype),
+                               exact=True)
     return _out_proj(out, p["wo"], cfg.dtype)
 
 
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device: torch.device, stacked: int | None = None) -> dict:
-    """``cfg.kv_quant`` stores K/V int8 with a per-(batch, slot) bf16 scale
-    (shared over heads and head_dim); scores contract against the int8
-    values with the scale folded in afterwards."""
+                  mk: ParamInit, stacked: int | None = None) -> dict:
+    """A zero cache made by ``mk``.  ``cfg.kv_quant`` stores K/V int8
+    with a per-(batch, slot) bf16 scale (shared over heads and
+    head_dim); scores contract against the int8 values with the scale
+    folded in afterwards."""
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     shape = (*L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    axes = (*A, "batch", None, "kv_heads", "head_dim")
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.dtype
-    out = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-           "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    out = {"k": mk(shape, kv_dtype, axes, init="zeros"),
+           "v": mk(shape, kv_dtype, axes, init="zeros")}
     if cfg.kv_quant:
-        s_shape = (*L, batch, max_len)
-        out["k_scale"] = torch.zeros(s_shape, dtype=torch.bfloat16,
-                                     device=device)
-        out["v_scale"] = torch.zeros(s_shape, dtype=torch.bfloat16,
-                                     device=device)
+        s_shape, s_axes = (*L, batch, max_len), (*A, "batch", None)
+        out["k_scale"] = mk(s_shape, torch.bfloat16, s_axes, init="zeros")
+        out["v_scale"] = mk(s_shape, torch.bfloat16, s_axes, init="zeros")
     return out
 
 
@@ -255,12 +381,22 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, kv: dict,
         kv["v"][:, slot] = vq[:, 0]
         kv["k_scale"][:, slot] = ks[:, 0]
         kv["v_scale"][:, slot] = vs[:, 0]
-        out = _ref_core(cfg, q, kv["k"], kv["v"], q_positions=positions,
-                        kv_positions=kv_positions, kv_len=kv_len,
-                        k_scale=kv["k_scale"], v_scale=kv["v_scale"])
+        scales = (kv["k_scale"], kv["v_scale"])
     else:
         kv["k"][:, slot] = k[:, 0]
         kv["v"][:, slot] = v[:, 0]
-        out = _ref_core(cfg, q, kv["k"], kv["v"], q_positions=positions,
-                        kv_positions=kv_positions, kv_len=kv_len)
+        scales = ()
+
+    def core(q_l, k_l, v_l, s0, *scales_l):
+        return _ref_core(cfg, q_l, k_l, v_l, q_positions=positions,
+                         kv_positions=kv_positions, kv_len=kv_len,
+                         **dict(zip(("k_scale", "v_scale"), scales_l)))
+    if is_dtensor(q) and not any(
+            n > 1 and p.is_shard(3) for t in (q, kv["k"])
+            for n, p in zip(t.device_mesh.shape, t.placements)):
+        # each device on its own rows and heads (a head_dim-sharded
+        # cache stays DTensor ops: gathering it would copy the cache)
+        out = _on_shards(q, kv["k"], kv["v"], core, scales)
+    else:
+        out = core(q, kv["k"], kv["v"], 0, *scales)
     return _out_proj(out, p["wo"], cfg.dtype), kv

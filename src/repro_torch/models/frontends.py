@@ -20,9 +20,9 @@ def init_audio_frontend(mk: ParamInit, cfg: ModelConfig) -> dict:
     d_model, plus the learned [MASK] frame embedding for masked
     prediction."""
     dt = cfg.param_dtype
-    return {"proj": mk((cfg.frontend_dim, cfg.d_model), dt),
-            "proj_b": mk((cfg.d_model,), dt, init="zeros"),
-            "mask_emb": mk((cfg.d_model,), dt, scale=0.02)}
+    return {"proj": mk((cfg.frontend_dim, cfg.d_model), dt, (None, "embed")),
+            "proj_b": mk((cfg.d_model,), dt, ("embed",), init="zeros"),
+            "mask_emb": mk((cfg.d_model,), dt, ("embed",), scale=0.02)}
 
 
 def audio_frontend(p: dict, cfg: ModelConfig, features: torch.Tensor,
@@ -39,8 +39,8 @@ def audio_frontend(p: dict, cfg: ModelConfig, features: torch.Tensor,
 def init_vision_adapter(mk: ParamInit, cfg: ModelConfig) -> dict:
     """Pixtral-style: precomputed patch embeddings -> backbone width."""
     dt = cfg.param_dtype
-    return {"proj": mk((cfg.frontend_dim, cfg.d_model), dt),
-            "proj_b": mk((cfg.d_model,), dt, init="zeros")}
+    return {"proj": mk((cfg.frontend_dim, cfg.d_model), dt, (None, "embed")),
+            "proj_b": mk((cfg.d_model,), dt, ("embed",), init="zeros")}
 
 
 def vision_adapter(p: dict, cfg: ModelConfig, patches: torch.Tensor

@@ -1,19 +1,25 @@
 """Shared neural building blocks (plain functions over dicts of tensors).
 
 Parameters are nested dicts of tensors with the reference's keys and
-layouts.  The reference's ``Leaf``/``split_tree`` carry logical sharding
-axes; the port does not shard yet, so it has no counterpart.  Random
-parameters come from a ``torch.Generator``: the same seed gives other
-numbers than ``jax.random``, so parity tests carry the reference's
-parameters across (``repro_torch.models.convert``).
+layouts.  Every leaf is made by a ``ParamInit`` call that names its
+logical sharding axes (``axes=("embed", "mlp")``), the counterpart of
+the reference's ``Leaf``/``split_tree``: the same init run with
+``LogicalAxes`` in place of ``ParamInit`` returns the tree of axes
+(``transformer.param_specs``), which ``repro_torch.dist.sharding`` maps
+onto a device mesh.  Random parameters come from a ``torch.Generator``:
+the same seed gives other numbers than ``jax.random``, so parity tests
+carry the reference's parameters across (``repro_torch.models.convert``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+
+from ..dist import shard_ops
 
 
 # --------------------------------------------------------------------- #
@@ -30,8 +36,13 @@ class ParamInit:
                     else torch.Generator(device=device).manual_seed(seed))
 
     def __call__(self, shape: tuple[int, ...], dtype: Any,
+                 axes: tuple[str | None, ...] | None = None,
                  scale: float | None = None, init: str = "normal"
                  ) -> torch.Tensor:
+        """One leaf of ``shape``; ``axes`` names its logical axes (one
+        a dim), which ``LogicalAxes`` returns in place of the tensor."""
+        if axes is not None and len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not match shape {shape}")
         if self.gen is None:
             return torch.empty(shape, dtype=dtype, device=self.device)
         if init == "zeros":
@@ -46,17 +57,39 @@ class ParamInit:
         return w.mul_(scale).to(dtype)
 
 
+class LogicalAxes(ParamInit):
+    """A ``ParamInit`` that makes no tensor: each leaf is its logical
+    axes tuple, so an init run with it gives the specs tree."""
+
+    def __init__(self):
+        self.device, self.gen = torch.device("meta"), None
+
+    def __call__(self, shape: tuple[int, ...], dtype: Any,
+                 axes: tuple[str | None, ...] | None = None,
+                 scale: float | None = None, init: str = "normal"
+                 ) -> tuple[str | None, ...]:
+        if axes is None or len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not match shape {shape}")
+        return tuple(axes)
+
+
 # --------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------- #
 def init_rmsnorm(mk: ParamInit, d: int, dtype: Any,
                  stacked: int | None = None) -> torch.Tensor:
-    shape = (d,) if stacked is None else (stacked, d)
-    return mk(shape, dtype, init="ones")
+    if stacked is None:
+        return mk((d,), dtype, ("embed",), init="ones")
+    return mk((stacked, d), dtype, ("layers", "embed"), init="ones")
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
+    """On DTensors on each device's rows (``dist.shard_ops.rowwise``)."""
+    return shard_ops.rowwise(functools.partial(_rmsnorm, eps=eps), x, w)
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
@@ -75,10 +108,11 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 def init_mlp(mk: ParamInit, d_model: int, d_ff: int, dtype: Any, glu: bool,
              stacked: int | None = None) -> dict:
     L = () if stacked is None else (stacked,)
-    p = {"up": mk((*L, d_model, d_ff), dtype),
-         "down": mk((*L, d_ff, d_model), dtype)}
+    A = () if stacked is None else ("layers",)
+    p = {"up": mk((*L, d_model, d_ff), dtype, (*A, "embed", "mlp")),
+         "down": mk((*L, d_ff, d_model), dtype, (*A, "mlp", "embed"))}
     if glu:
-        p["gate"] = mk((*L, d_model, d_ff), dtype)
+        p["gate"] = mk((*L, d_model, d_ff), dtype, (*A, "embed", "mlp"))
     return p
 
 
@@ -87,12 +121,16 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     ``preferred_element_type=dt`` einsums."""
     fn = ACTIVATIONS[act]
     dt = x.dtype
-    h = x @ p["up"].to(dt)
     if "gate" in p:
-        h = h * fn(x @ p["gate"].to(dt))
+        x, xg = shard_ops.fan_out(x, 2)
+    else:
+        (x,) = shard_ops.fan_out(x, 1)
+    h = shard_ops.matmul(x, p["up"].to(dt))
+    if "gate" in p:
+        h = h * fn(shard_ops.matmul(xg, p["gate"].to(dt)))
     else:
         h = fn(h)
-    return h @ p["down"].to(dt)
+    return shard_ops.matmul(h, p["down"].to(dt))
 
 
 # --------------------------------------------------------------------- #
@@ -122,12 +160,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # --------------------------------------------------------------------- #
 def init_embedding(mk: ParamInit, vocab: int, d_model: int, dtype: Any
                    ) -> torch.Tensor:
-    return mk((vocab, d_model), dtype, scale=0.02)
+    return mk((vocab, d_model), dtype, ("vocab", "embed"), scale=0.02)
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; a DTensor table on each device's rows
+    (``dist.shard_ops.embedding``)."""
+    return shard_ops.embedding(table, ids)
 
 
 def init_lm_head(mk: ParamInit, d_model: int, vocab: int, dtype: Any
                  ) -> torch.Tensor:
-    return mk((d_model, vocab), dtype)
+    return mk((d_model, vocab), dtype, ("embed", "vocab"))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -135,9 +179,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token NLL in fp32.  logits (..., V); labels (...) int32 or
     int64 (gathered as int64); ``mask`` (...) weights the tokens."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    nll = shard_ops.nll(logits, labels.long())
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -12,8 +12,6 @@ into the tensors of ``state`` in place (the reference returns new arrays).
 """
 from __future__ import annotations
 
-from typing import Any
-
 import torch
 import torch.nn.functional as F
 
@@ -35,21 +33,23 @@ def init_mamba2(mk: ParamInit, cfg: ModelConfig,
     d_inner, nh, hd, ds = _dims(cfg)
     d_xbc = d_inner + 2 * ds                     # conv runs over [x, B, C]
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     d, dt = cfg.d_model, cfg.param_dtype
     return {
         # projections: z (gate), x, B, C, dt
-        "in_z": mk((*L, d, d_inner), dt),
-        "in_x": mk((*L, d, d_inner), dt),
-        "in_b": mk((*L, d, ds), dt),
-        "in_c": mk((*L, d, ds), dt),
-        "in_dt": mk((*L, d, nh), dt),
-        "dt_bias": mk((*L, nh), dt, init="zeros"),
-        "conv_w": mk((*L, s.d_conv, d_xbc), dt, scale=0.5),
-        "conv_b": mk((*L, d_xbc), dt, init="zeros"),
-        "a_log": mk((*L, nh), dt, init="zeros"),
-        "d_skip": mk((*L, nh), dt, init="ones"),
-        "norm": mk((*L, d_inner), dt, init="ones"),
-        "out": mk((*L, d_inner, d), dt),
+        "in_z": mk((*L, d, d_inner), dt, (*A, "embed", "mlp")),
+        "in_x": mk((*L, d, d_inner), dt, (*A, "embed", "mlp")),
+        "in_b": mk((*L, d, ds), dt, (*A, "embed", None)),
+        "in_c": mk((*L, d, ds), dt, (*A, "embed", None)),
+        "in_dt": mk((*L, d, nh), dt, (*A, "embed", "heads")),
+        "dt_bias": mk((*L, nh), dt, (*A, "heads"), init="zeros"),
+        "conv_w": mk((*L, s.d_conv, d_xbc), dt, (*A, None, "mlp"),
+                     scale=0.5),
+        "conv_b": mk((*L, d_xbc), dt, (*A, "mlp"), init="zeros"),
+        "a_log": mk((*L, nh), dt, (*A, "heads"), init="zeros"),
+        "d_skip": mk((*L, nh), dt, (*A, "heads"), init="ones"),
+        "norm": mk((*L, d_inner), dt, (*A, "mlp"), init="ones"),
+        "out": mk((*L, d_inner, d), dt, (*A, "mlp", "embed")),
     }
 
 
@@ -173,15 +173,17 @@ def mamba2_seq(p: dict, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     return _output(p, cfg, y, xh, z, u.shape)
 
 
-def init_mamba2_state(cfg: ModelConfig, batch: int, device: Any,
+def init_mamba2_state(cfg: ModelConfig, batch: int, mk: ParamInit,
                       stacked: int | None = None) -> dict:
+    """Zero SSM states and conv tails, made by ``mk``."""
     s = cfg.ssm
     d_inner, nh, hd, ds = _dims(cfg)
     L = () if stacked is None else (stacked,)
-    return {"h": torch.zeros((*L, batch, nh, hd, ds), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros((*L, batch, s.d_conv - 1, d_inner + 2 * ds),
-                                dtype=cfg.dtype, device=device)}
+    A = () if stacked is None else ("layers",)
+    return {"h": mk((*L, batch, nh, hd, ds), torch.float32,
+                    (*A, "batch", "heads", None, None), init="zeros"),
+            "conv": mk((*L, batch, s.d_conv - 1, d_inner + 2 * ds),
+                       cfg.dtype, (*A, "batch", None, "mlp"), init="zeros")}
 
 
 def mamba2_decode(p: dict, cfg: ModelConfig, u: torch.Tensor,

@@ -17,9 +17,13 @@ are vanishingly rare, and no test depends on one.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from ..dist import shard_ops
+from ..dist.context import constrain_batch, is_dtensor, reduce_partial
 from .config import ModelConfig, MoEConfig
 from .layers import ParamInit
 
@@ -28,17 +32,20 @@ def init_moe(mk: ParamInit, cfg: ModelConfig, stacked: int | None = None
              ) -> dict:
     m = cfg.moe
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     d, e, f = cfg.d_model, m.n_experts, m.d_expert
     dt = cfg.param_dtype
-    p = {"router": mk((*L, d, e), dt, scale=0.02),
-         "up": mk((*L, e, d, f), dt),
-         "gate": mk((*L, e, d, f), dt),
-         "down": mk((*L, e, f, d), dt)}
+    p = {"router": mk((*L, d, e), dt, (*A, "embed", None), scale=0.02),
+         "up": mk((*L, e, d, f), dt, (*A, "experts", "embed", "mlp")),
+         "gate": mk((*L, e, d, f), dt, (*A, "experts", "embed", "mlp")),
+         "down": mk((*L, e, f, d), dt, (*A, "experts", "mlp", "embed"))}
     if m.n_shared:
-        p["shared_up"] = mk((*L, d, f * m.n_shared), dt)
-        p["shared_gate"] = mk((*L, d, f * m.n_shared), dt)
-        p["shared_down"] = mk((*L, f * m.n_shared, d), dt)
-        p["shared_router"] = mk((*L, d, 1), dt, scale=0.02)
+        fs = f * m.n_shared
+        p["shared_up"] = mk((*L, d, fs), dt, (*A, "embed", "mlp"))
+        p["shared_gate"] = mk((*L, d, fs), dt, (*A, "embed", "mlp"))
+        p["shared_down"] = mk((*L, fs, d), dt, (*A, "mlp", "embed"))
+        p["shared_router"] = mk((*L, d, 1), dt, (*A, "embed", None),
+                                scale=0.02)
     return p
 
 
@@ -52,16 +59,26 @@ def route(p: dict, cfg: ModelConfig, xt: torch.Tensor
     the renormalisation over the chosen k, and ``E * sum_e
     frac_tokens_e * frac_probs_e``."""
     m = cfg.moe
-    logits = (xt @ p["router"].to(cfg.dtype)).float()
+    logits = shard_ops.matmul(xt, p["router"].to(cfg.dtype)).float()
+    gate_vals, expert_idx, probs, counts = shard_ops.rowwise(
+        functools.partial(_pick, m=m), logits)
+    # one-hot indices carry no gradient: frac_tokens is a constant
+    frac_tokens = reduce_partial(shard_ops.row_mean(counts))
+    frac_probs = reduce_partial(shard_ops.row_mean(probs))
+    aux = m.n_experts * torch.sum(frac_tokens * frac_probs)
+    return gate_vals, expert_idx, aux
+
+
+def _pick(logits: torch.Tensor, m: MoEConfig) -> tuple[torch.Tensor, ...]:
+    """A row's routing: (gate values, expert ids, probabilities, one-hot
+    counts of its picks)."""
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, m.top_k, dim=-1)
     if m.router_norm_topk:
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)
-    # one-hot indices carry no gradient: frac_tokens is a constant
-    frac_tokens = F.one_hot(expert_idx, m.n_experts).sum(1).float().mean(0)
-    aux = m.n_experts * torch.sum(frac_tokens * probs.mean(0))
-    return gate_vals, expert_idx, aux
+    counts = F.one_hot(expert_idx, m.n_experts).sum(1).float()
+    return gate_vals, expert_idx, probs, counts
 
 
 def group_capacity(m: MoEConfig, T: int) -> tuple[int, int]:
@@ -75,14 +92,15 @@ def group_capacity(m: MoEConfig, T: int) -> tuple[int, int]:
     return Tg, max(cap, m.top_k)
 
 
-def slots(expert_idx: torch.Tensor, m: MoEConfig
+def slots(expert_idx: torch.Tensor, m: MoEConfig, Tg: int | None = None
           ) -> tuple[torch.Tensor, torch.Tensor, int, int]:
     """expert_idx (T, K) -> (slot (T, K), keep (T, K), Tg, cap): each
     (token, k)'s position in its expert's buffer of its group, the
     running count over the group's (token, k) pairs in token-major order;
-    ``keep`` is ``slot < cap``."""
+    ``keep`` is ``slot < cap``.  ``Tg`` (default: ``group_capacity``'s
+    for T) is given when T is one device's share of the groups."""
     T, K = expert_idx.shape
-    Tg, cap = group_capacity(m, T)
+    Tg, cap = group_capacity(m, T if Tg is None else Tg)
     idx = expert_idx.reshape(T // Tg, 1, Tg * K)
     # one-hot laid out (G, E, Tg*K): the count runs along the innermost
     # dim (along an outer dim, PyTorch's scan took 23.9 ms of a 167 ms
@@ -107,20 +125,66 @@ def _experts(p: dict, dt: torch.dtype, xe: torch.Tensor) -> torch.Tensor:
 def _grouped(p: dict, cfg: ModelConfig, xt: torch.Tensor,
              gate_vals: torch.Tensor, expert_idx: torch.Tensor
              ) -> torch.Tensor:
+    """The capacity dispatch on the groups of ``group_capacity``.  On
+    DTensors the groups are first laid out over the batch axis, as the
+    reference constrains them (they align with the DP sharding, so the
+    dispatch never crosses devices), and each device dispatches its own
+    groups (``_dispatch_local``)."""
+    T, d = xt.shape
+    Tg, _ = group_capacity(cfg.moe, T)
+    xg = constrain_batch(xt.reshape(T // Tg, Tg, d), exact=True)
+    if is_dtensor(xg):
+        return _dispatch_local(p, cfg, xg, gate_vals, expert_idx)
+    return _dispatch(cfg.moe, xt, gate_vals, expert_idx, Tg,
+                     lambda xe: _experts(p, xt.dtype, xe))
+
+
+def _dispatch_local(p: dict, cfg: ModelConfig, xg: torch.Tensor,
+                    gate_vals: torch.Tensor, expert_idx: torch.Tensor
+                    ) -> torch.Tensor:
+    """``_dispatch`` on each device's local groups of the DTensor ``xg``
+    (G, Tg, d).  Its groups stay sharded over the mesh dims that shard
+    dim 0 and are gathered over the others (where ``constrain_batch``
+    could not shard them, over all).  Routing, slots and gathers run on
+    local tensors; each block's expert buffer goes back into a DTensor
+    sharded along its rows (the reference's per-block constraint) for the
+    expert products against the sharded weights."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    G, Tg, d = xg.shape
+    mesh = xg.device_mesh
+    rows = [pl if pl.is_shard(0) else Replicate() for pl in xg.placements]
+
+    def local(t: torch.Tensor) -> torch.Tensor:
+        t = t.reshape(G, Tg, *t.shape[1:]).redistribute(mesh, rows)
+        return t.to_local().reshape(-1, *t.shape[2:])
+
+    def run(xe: torch.Tensor) -> torch.Tensor:
+        xe = DTensor.from_local(xe, mesh, [Shard(1) if pl.is_shard(0)
+                                           else pl for pl in rows],
+                                run_check=False)
+        ye = _experts(p, xg.dtype, xe)
+        return ye.redistribute(mesh, xe.placements).to_local()
+
+    y = _dispatch(cfg.moe, local(xg.reshape(G * Tg, d)), local(gate_vals),
+                  local(expert_idx), Tg, run)
+    return DTensor.from_local(y, mesh, rows, run_check=False)
+
+
+def _dispatch(m: MoEConfig, xt: torch.Tensor, gate_vals: torch.Tensor,
+              expert_idx: torch.Tensor, Tg: int, run) -> torch.Tensor:
     """The capacity dispatch: gather the tokens into an (E, G, C, d)
     buffer (each slot reads the token that fills it, an empty slot a zero
-    row), run the experts, and give each token its K rows of the output
-    weighted by their gates (a dropped one's gate is 0) in one batched
-    product.  That product is the scatter-add of the gated outputs
-    written as a gather: a token has exactly K rows, so it needs no
-    atomics, and no step waits for the host to learn how many rows were
-    kept.  With ``scan_groups`` > 1 the group blocks run in turn (only to
-    bound the buffers: groups are independent)."""
-    m = cfg.moe
+    row), run the experts (``run``), and give each token its K rows of
+    the output weighted by their gates (a dropped one's gate is 0) in one
+    batched product.  That product is the scatter-add of the gated
+    outputs written as a gather: a token has exactly K rows, so it needs
+    no atomics, and no step waits for the host to learn how many rows
+    were kept.  With ``scan_groups`` > 1 the group blocks run in turn
+    (only to bound the buffers: groups are independent)."""
     T, d = xt.shape
     K, E = m.top_k, m.n_experts
     dt = xt.dtype
-    slot, keep, Tg, cap = slots(expert_idx, m)
+    slot, keep, Tg, cap = slots(expert_idx, m, Tg)
     G = T // Tg
     ns = m.scan_groups
     blocks = ns if ns > 1 and G % ns == 0 else 1
@@ -140,7 +204,7 @@ def _grouped(p: dict, cfg: ModelConfig, xt: torch.Tensor,
         src = torch.full((n + 1,), Tb, device=dev).index_copy(
             0, torch.where(kb, where, n).reshape(-1), token.reshape(-1))
         xb = torch.cat([xt[rows], xt.new_zeros(1, d)])
-        ye = _experts(p, dt, xb[src[:n]].view(E, Gb * cap, d)).view(n, d)
+        ye = run(xb[src[:n]].view(E, Gb * cap, d)).view(n, d)
         gates = (gate_vals[rows] * kb).to(dt)[:, None, :]      # (Tb,1,K)
         ys.append(torch.bmm(gates, ye[torch.where(kb, where, 0)])[:, 0])
     return torch.cat(ys)
@@ -160,22 +224,29 @@ def _dense(p: dict, cfg: ModelConfig, xt: torch.Tensor,
 
 def _shared(p: dict, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
     dt = xt.dtype
-    sg = torch.sigmoid((xt @ p["shared_router"].to(dt)).float())
-    hs = xt @ p["shared_up"].to(dt)
-    hs = hs * F.silu(xt @ p["shared_gate"].to(dt))
-    return (hs @ p["shared_down"].to(dt)) * sg.to(dt)
+    mm = shard_ops.matmul
+    xr, xu, xg = shard_ops.fan_out(xt, 3)
+    sg = torch.sigmoid(mm(xr, p["shared_router"].to(dt)).float())
+    hs = mm(xu, p["shared_up"].to(dt))
+    hs = hs * F.silu(mm(xg, p["shared_gate"].to(dt)))
+    # summed over the model shards before the gate scales it and it
+    # meets the routed experts' rows (DTensor would pick where to sum)
+    return reduce_partial(mm(hs, p["shared_down"].to(dt))) * sg.to(dt)
 
 
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss fp32)."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
-    gate_vals, expert_idx, aux = route(p, cfg, xt)
+    # the token rows keep x's batch layout (a no-op forward); on DTensors
+    # it also lays their gradient out so before it is viewed back as x's
+    xt = constrain_batch(x.reshape(B * S, d), exact=True)
+    xt, xr, xs = shard_ops.fan_out(xt, 3)
+    gate_vals, expert_idx, aux = route(p, cfg, xr)
     ffn = _dense if cfg.moe.dense_dispatch else _grouped
     y = ffn(p, cfg, xt, gate_vals, expert_idx)
     if cfg.moe.n_shared:
-        y = y + _shared(p, cfg, xt)
+        y = y + _shared(p, cfg, xs)
     return y.reshape(B, S, d), aux
 
 

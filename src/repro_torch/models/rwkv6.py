@@ -15,8 +15,6 @@ place (the reference returns new arrays).
 """
 from __future__ import annotations
 
-from typing import Any
-
 import torch
 import torch.nn.functional as F
 
@@ -35,25 +33,28 @@ def init_rwkv6(mk: ParamInit, cfg: ModelConfig,
                stacked: int | None = None) -> dict:
     nh, hd = _dims(cfg)
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     d, dt = cfg.d_model, cfg.param_dtype
     r = cfg.rwkv.decay_lora
+    vec, hh = (*A, "embed"), (*A, "heads", "head_dim")
     return {
-        "mix_r": mk((*L, d), dt, init="zeros"),
-        "mix_k": mk((*L, d), dt, init="zeros"),
-        "mix_v": mk((*L, d), dt, init="zeros"),
-        "mix_w": mk((*L, d), dt, init="zeros"),
-        "mix_g": mk((*L, d), dt, init="zeros"),
-        "wr": mk((*L, d, nh, hd), dt),
-        "wk": mk((*L, d, nh, hd), dt),
-        "wv": mk((*L, d, nh, hd), dt),
-        "wg": mk((*L, d, d), dt),
+        "mix_r": mk((*L, d), dt, vec, init="zeros"),
+        "mix_k": mk((*L, d), dt, vec, init="zeros"),
+        "mix_v": mk((*L, d), dt, vec, init="zeros"),
+        "mix_w": mk((*L, d), dt, vec, init="zeros"),
+        "mix_g": mk((*L, d), dt, vec, init="zeros"),
+        "wr": mk((*L, d, nh, hd), dt, (*A, "embed", "heads", "head_dim")),
+        "wk": mk((*L, d, nh, hd), dt, (*A, "embed", "heads", "head_dim")),
+        "wv": mk((*L, d, nh, hd), dt, (*A, "embed", "heads", "head_dim")),
+        "wg": mk((*L, d, d), dt, (*A, "embed", "embed")),
         # data-dependent decay: w_t = exp(-exp(w0 + (x W_a) W_b))
-        "w0": mk((*L, nh, hd), dt, init="zeros"),
-        "wa": mk((*L, d, r), dt, scale=0.02),
-        "wb": mk((*L, r, nh, hd), dt, scale=0.02),
-        "u": mk((*L, nh, hd), dt, init="zeros"),
-        "ln_x": mk((*L, d), dt, init="ones"),
-        "out": mk((*L, d, d), dt),
+        "w0": mk((*L, nh, hd), dt, hh, init="zeros"),
+        "wa": mk((*L, d, r), dt, (*A, "embed", None), scale=0.02),
+        "wb": mk((*L, r, nh, hd), dt, (*A, None, "heads", "head_dim"),
+                 scale=0.02),
+        "u": mk((*L, nh, hd), dt, hh, init="zeros"),
+        "ln_x": mk((*L, d), dt, vec, init="ones"),
+        "out": mk((*L, d, d), dt, (*A, "embed", "embed")),
     }
 
 
@@ -194,13 +195,14 @@ def init_channel_mix(mk: ParamInit, cfg: ModelConfig,
     """RWKV channel-mix (the FFN of the RWKV stack):
     out = sigmoid(x_r W_r) * (relu(x_k W_k)^2 W_v)."""
     L = () if stacked is None else (stacked,)
+    A = () if stacked is None else ("layers",)
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
     return {
-        "mix_k": mk((*L, d), dt, init="zeros"),
-        "mix_r": mk((*L, d), dt, init="zeros"),
-        "wk": mk((*L, d, f), dt),
-        "wv": mk((*L, f, d), dt),
-        "wr": mk((*L, d, d), dt),
+        "mix_k": mk((*L, d), dt, (*A, "embed"), init="zeros"),
+        "mix_r": mk((*L, d), dt, (*A, "embed"), init="zeros"),
+        "wk": mk((*L, d, f), dt, (*A, "embed", "mlp")),
+        "wv": mk((*L, f, d), dt, (*A, "mlp", "embed")),
+        "wr": mk((*L, d, d), dt, (*A, "embed", "embed")),
     }
 
 
@@ -215,15 +217,17 @@ def channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return torch.sigmoid(xr @ p["wr"].to(dt)) * kv
 
 
-def init_rwkv6_state(cfg: ModelConfig, batch: int, device: Any,
+def init_rwkv6_state(cfg: ModelConfig, batch: int, mk: ParamInit,
                      stacked: int | None = None) -> dict:
+    """Zero WKV states and token-shift carries, made by ``mk``."""
     nh, hd = _dims(cfg)
     L = () if stacked is None else (stacked,)
-    shift = (*L, batch, 1, cfg.d_model)
-    return {"S": torch.zeros((*L, batch, nh, hd, hd), dtype=torch.float32,
-                             device=device),
-            "shift_t": torch.zeros(shift, dtype=cfg.dtype, device=device),
-            "shift_c": torch.zeros(shift, dtype=cfg.dtype, device=device)}
+    A = () if stacked is None else ("layers",)
+    shift, ax = (*L, batch, 1, cfg.d_model), (*A, "batch", None, "embed")
+    return {"S": mk((*L, batch, nh, hd, hd), torch.float32,
+                    (*A, "batch", "heads", None, None), init="zeros"),
+            "shift_t": mk(shift, cfg.dtype, ax, init="zeros"),
+            "shift_c": mk(shift, cfg.dtype, ax, init="zeros")}
 
 
 def rwkv6_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: dict

@@ -18,6 +18,12 @@ frontend (hubert) takes the place of the token embedding; the vision
 adapter (pixtral) prepends its patch embeddings to the tokens', and the
 loss scores the text positions only.  Decode is token-only, as the
 reference's is.
+
+On DTensors (``repro_torch.dist``) each block re-asserts the
+activations' batch layout where the reference does (``constrain_batch``),
+gathers its weights over the batch axis where it uses them (FSDP) and
+sums its row-parallel partial sums at the residual adds; outside a mesh
+context these are identities.
 """
 from __future__ import annotations
 
@@ -28,11 +34,14 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..core.kernels import resolve_device
+from ..dist import shard_ops
+from ..dist.context import constrain_batch, gather_weights, reduce_partial
 from . import attention as attn_mod
 from . import frontends, mamba2, moe as moe_mod, rwkv6
 from .config import ModelConfig
-from .layers import (ParamInit, cross_entropy, init_embedding, init_lm_head,
-                     init_mlp, init_rmsnorm, mlp, rmsnorm)
+from .layers import (LogicalAxes, ParamInit, cross_entropy, embed_rows,
+                     init_embedding, init_lm_head, init_mlp, init_rmsnorm,
+                     mlp, rmsnorm)
 
 MOE_AUX_COEF = 0.01
 BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
@@ -87,12 +96,15 @@ def _zamba_split(cfg: ModelConfig) -> tuple[int, int, int]:
     return n_groups, period, tail
 
 
-def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
+def init(cfg: ModelConfig, seed: int = 0, device: Any = None,
+         mk: ParamInit | None = None) -> dict:
     """The parameter tree, in ``cfg.param_dtype``, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (None: CUDA,
-    raising without a card).  ``device="meta"`` gives shapes only."""
+    raising without a card).  ``device="meta"`` gives shapes only; an
+    ``mk`` given makes the leaves in place of one built from ``seed``
+    and ``device`` (``LogicalAxes``: the logical axes)."""
     check_ported(cfg)
-    mk = ParamInit(seed, _device(device))
+    mk = mk or ParamInit(seed, _device(device))
     p: dict[str, Any] = {}
     if cfg.frontend == "audio":
         p["frontend"] = frontends.init_audio_frontend(mk, cfg)
@@ -123,8 +135,14 @@ def init(cfg: ModelConfig, seed: int = 0, device: Any = None) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device: Any = None
                 ) -> dict:
     """-> params alone (the reference returns ``(params, logical_specs)``;
-    the port does not shard, so it has no specs)."""
+    the port's specs are ``param_specs(cfg)``)."""
     return init(cfg, seed, device)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init_params(cfg)``, a tree of
+    the same keys (the reference's ``split_tree`` specs)."""
+    return init(cfg, mk=LogicalAxes())
 
 
 def layer(tree: dict, i: int) -> dict:
@@ -183,24 +201,29 @@ def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor
 def _attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    x = x + attn_mod.attention(p["attn"], cfg,
-                               rmsnorm(x, p["norm1"], cfg.norm_eps),
-                               positions)
+    x = constrain_batch(x)          # re-assert DP sharding at block entry
+    p = gather_weights(p)
+    x = x + reduce_partial(attn_mod.attention(
+        p["attn"], cfg, rmsnorm(x, p["norm1"], cfg.norm_eps), positions))
     y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
-    return x + y, aux
+    return x + reduce_partial(y), aux
 
 
 def _rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = x + rwkv6.rwkv6_seq(p["tmix"], cfg,
-                            rmsnorm(x, p["norm1"], cfg.norm_eps))
-    return x + rwkv6.channel_mix(p["cmix"], cfg,
-                                 rmsnorm(x, p["norm2"], cfg.norm_eps))
+    x = constrain_batch(x)
+    p = gather_weights(p)
+    x = x + reduce_partial(rwkv6.rwkv6_seq(
+        p["tmix"], cfg, rmsnorm(x, p["norm1"], cfg.norm_eps)))
+    return x + reduce_partial(rwkv6.channel_mix(
+        p["cmix"], cfg, rmsnorm(x, p["norm2"], cfg.norm_eps)))
 
 
 def _mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor
                  ) -> torch.Tensor:
-    return x + mamba2.mamba2_seq(p["mamba"], cfg,
-                                 rmsnorm(x, p["norm"], cfg.norm_eps))
+    x = constrain_batch(x)
+    p = gather_weights(p)
+    return x + reduce_partial(mamba2.mamba2_seq(
+        p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps)))
 
 
 def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -242,23 +265,27 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     the vision adapter's patch embeddings when there are images; the
     positions then run over the image prefix too."""
     if cfg.frontend == "audio":
-        x = frontends.audio_frontend(params["frontend"], cfg,
+        x = frontends.audio_frontend(gather_weights(params["frontend"]), cfg,
                                      batch["features"],
                                      batch.get("frame_mask"))
     else:
-        x = params["embed"][batch["tokens"]].to(cfg.dtype)
+        x = embed_rows(gather_weights(params["embed"]),
+                       batch["tokens"]).to(cfg.dtype)
         if cfg.frontend == "vision":
-            img = frontends.vision_adapter(params["adapter"], cfg,
-                                           batch["patch_embeds"])
+            img = frontends.vision_adapter(gather_weights(params["adapter"]),
+                                           cfg, batch["patch_embeds"])
             x = torch.cat([img, x], dim=1)
-    return x, torch.arange(x.shape[1], device=x.device)
+    return constrain_batch(x), torch.arange(x.shape[1], device=x.device)
 
 
 def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    # the stack's output as a value (the reference's scan carry is one)
+    x = constrain_batch(x)
+    (x,) = shard_ops.fan_out(rmsnorm(
+        x, gather_weights(params["final_norm"]), cfg.norm_eps), 1)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(cfg.dtype)
+    return shard_ops.matmul(x, gather_weights(head).to(cfg.dtype))
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict
@@ -296,31 +323,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     attention layers, the SSM state and conv tail of the Mamba2 layers,
     the WKV state and token-shift carries of the RWKV6 layers, on
     ``device`` (None: CUDA; ``"meta"``: shapes only)."""
+    return _init_cache(cfg, batch, max_len, ParamInit(0, _device(device)))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The logical axes of every leaf of ``init_cache``, a tree of the
+    same keys."""
+    return _init_cache(cfg, batch, max_len, LogicalAxes())
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                mk: ParamInit) -> dict:
     check_ported(cfg)
-    dev = _device(device)
     if cfg.block == "attn":
-        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, dev,
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, mk,
                                              stacked=cfg.n_layers)}
     if cfg.block == "rwkv6":
-        return {"rwkv": rwkv6.init_rwkv6_state(cfg, batch, dev,
+        return {"rwkv": rwkv6.init_rwkv6_state(cfg, batch, mk,
                                                stacked=cfg.n_layers)}
     if cfg.block == "mamba2":
-        return {"ssm": mamba2.init_mamba2_state(cfg, batch, dev,
+        return {"ssm": mamba2.init_mamba2_state(cfg, batch, mk,
                                                 stacked=cfg.n_layers)}
     n_groups, period, tail = _zamba_split(cfg)
-    c = {"ssm": mamba2.init_mamba2_state(cfg, batch, dev,
+    c = {"ssm": mamba2.init_mamba2_state(cfg, batch, mk,
                                          stacked=n_groups * period),
-         "shared_kv": attn_mod.init_kv_cache(cfg, batch, max_len, dev,
+         "shared_kv": attn_mod.init_kv_cache(cfg, batch, max_len, mk,
                                              stacked=n_groups)}
     if tail:
-        c["ssm_tail"] = mamba2.init_mamba2_state(cfg, batch, dev,
+        c["ssm_tail"] = mamba2.init_mamba2_state(cfg, batch, mk,
                                                  stacked=tail)
     return c
 
 
 def init_cache_arrays(cfg: ModelConfig, batch: int, max_len: int,
                       device: Any = None) -> dict:
-    """The cache alone (the reference returns ``(cache, specs)``)."""
+    """The cache alone (the reference returns ``(cache, specs)``; the
+    port's specs are ``cache_specs``)."""
     return init_cache(cfg, batch, max_len, device)
 
 
@@ -329,25 +367,25 @@ def _decode_attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        ) -> tuple[torch.Tensor, dict]:
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     o, kv = attn_mod.decode_attention(p["attn"], cfg, h, kv, cache_len)
-    x = x + o
+    x = x + reduce_partial(o)
     y, _ = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
-    return x + y, kv
+    return x + reduce_partial(y), kv
 
 
 def _decode_mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         state: dict) -> torch.Tensor:
-    return x + mamba2.mamba2_decode(p["mamba"], cfg,
-                                    rmsnorm(x, p["norm"], cfg.norm_eps),
-                                    state)
+    return x + reduce_partial(mamba2.mamba2_decode(
+        p["mamba"], cfg, rmsnorm(x, p["norm"], cfg.norm_eps), state))
 
 
 def _decode_rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        state: dict) -> torch.Tensor:
     hn = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    x = x + rwkv6.rwkv6_decode(p["tmix"], cfg, hn,
-                               {"S": state["S"], "shift": state["shift_t"]})
+    x = x + reduce_partial(rwkv6.rwkv6_decode(
+        p["tmix"], cfg, hn, {"S": state["S"], "shift": state["shift_t"]}))
     hn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    x = x + rwkv6.channel_mix(p["cmix"], cfg, hn, state["shift_c"])
+    x = x + reduce_partial(rwkv6.channel_mix(p["cmix"], cfg, hn,
+                                             state["shift_c"]))
     state["shift_c"].copy_(hn)
     return x
 
@@ -363,7 +401,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
     check_ported(cfg)
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = embed_rows(params["embed"], tokens).to(cfg.dtype)
     cache_len = int(cache_len)
     if cfg.block == "attn":
         for i in range(cfg.n_layers):

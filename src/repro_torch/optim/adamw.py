@@ -10,8 +10,8 @@ back to the leaf's dtype.
 ``adamw_update`` writes the new parameters and moments into the given
 tensors (under ``torch.no_grad()``), the counterpart of the reference's
 buffer donation; one leaf at a time, so the fp32 temporaries are one
-leaf's size.  The reference's ``opt_state_specs`` (logical sharding axes
-of the state) has no counterpart: the port does not shard.
+leaf's size.  ``opt_state_specs`` gives the state's logical sharding
+axes (the moments mirror the parameters), as the reference's does.
 """
 from __future__ import annotations
 
@@ -54,6 +54,11 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     return {"m": _zeros_like(params, cfg.moment_dtype),
             "v": _zeros_like(params, cfg.moment_dtype),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def opt_state_specs(param_specs: Any) -> dict:
+    """Logical axes for the optimizer state tree (mirrors the params)."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def global_norm(tree: dict) -> torch.Tensor:

@@ -73,13 +73,16 @@ def _is_reference(name: str) -> bool:
 @pytest.fixture(scope="module")
 def reference():
     """The reference's model stack, imported through a stub of the
-    missing ``repro.dist`` (identity ``constrain_batch``, empty
-    ``sharding``); ``sys.modules`` and the parent packages' attributes
-    are restored afterwards."""
+    missing ``repro.dist`` (identity ``constrain_batch``,
+    ``constrain_seq`` and ``constrain_attn_seq``, empty ``sharding``);
+    ``sys.modules`` and the parent packages' attributes are restored
+    afterwards."""
     before = {n for n in sys.modules if _is_reference(n)}
     dist = types.ModuleType("repro.dist")
     context = types.ModuleType("repro.dist.context")
     context.constrain_batch = lambda x, exact=False: x
+    context.constrain_seq = lambda x: x
+    context.constrain_attn_seq = lambda q, k, v: (q, k, v, None)
     sharding = types.ModuleType("repro.dist.sharding")
     dist.context, dist.sharding = context, sharding
     sys.modules.update({"repro.dist": dist, "repro.dist.context": context,
@@ -451,8 +454,17 @@ def test_frontend_families_init_on_the_cpu(arch):
     assert sum(t.numel() for t in leaves(params)) == count_params(cfg)
 
 
-def test_sequence_parallel_attention_raises(models):
-    _, pcfg, _, pparams = models("deepseek")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.forward(pparams, pcfg.replace(attn_sp=True), {"tokens": toks})
+@pytest.mark.parametrize("impl", ["ref", "flash", "blocked"])
+def test_sequence_parallel_attention_without_a_mesh_is_the_reference(
+        reference, models, impl):
+    """``attn_sp`` outside a mesh context (plain tensors): the port's
+    constraints are identities, as the reference's stub makes its own,
+    and both forwards agree."""
+    rcfg, pcfg, rparams, pparams = models("deepseek")
+    toks = _tokens(pcfg, (2, 32), seed=4)
+    want, _ = reference.transformer.forward(
+        rparams, rcfg.replace(attn_impl=impl, attn_sp=True),
+        {"tokens": jnp.asarray(toks)})
+    got, _ = pt.forward(pparams, pcfg.replace(attn_impl=impl, attn_sp=True),
+                        {"tokens": torch.from_numpy(toks).long()})
+    _close(got, want)
