@@ -189,19 +189,28 @@ from import, and exits non-zero on any failure:
 
 19. ``repro_torch.dist`` and the dry run against the card: (a) a
     one-rank NCCL group and a ``(1, 1)`` ``("data", "model")`` CUDA mesh;
-    deepseek-7b's full-size bf16 weights (phase 8's) distributed by
-    ``RULES_DECODE`` as DTensors; a 4 x 2048 prefill with flash and
-    ``attn_sp`` (the kernel gets each device's local q, k, v) against
-    the plain-tensor prefill (2e-2), 30 flash launches; (b) on that mesh
-    the dry run's own ``build_cell`` with seeded tensors: deepseek-7b's
-    prefill (full size, 4 x 2048, ``configure_for_cell``'s blocked
-    attention) and phase 12's train step (8 layers, 4 x 2048), each run
-    once under ``FlopCounterMode`` with the peak from
-    ``max_memory_allocated``, against the dry run's prediction on a
-    ``(1, 1)`` mesh of the fake group (``measure_cell``: FLOPs equal,
-    peak within 10%); (c) ``launch.dryrun.run_cell`` for deepseek-7b's
-    three cells and qwen1.5-32b's prefill_32k on the production 16 x 16
-    mesh on the card's host, one record line each.
+    deepseek-7b's, zamba2-1.2b's and rwkv6-7b's full-size bf16 weights
+    distributed by ``RULES_DECODE`` as DTensors; a 4 x 2048 prefill of
+    each with ``attn_sp`` and its kernels (flash at each shard's query
+    offset; SSD and WKV6 under ``ssm_impl="pallas"`` on each device's
+    rows and heads) against the plain-tensor prefill (2e-2): 30 flash,
+    38 SSD + 6 flash and 32 WKV6 launches; (b) on that mesh the dry
+    run's own ``build_cell`` with seeded tensors: deepseek-7b's prefill
+    (full size, 4 x 2048, ``configure_for_cell``'s blocked attention)
+    and phase 12's train step (8 layers, 4 x 2048), each run once under
+    ``FlopCounterMode`` with the peak from ``max_memory_allocated``,
+    against the dry run's prediction on a ``(1, 1)`` mesh of the fake
+    group (``measure_cell``: FLOPs equal, peak within 10%); (c)
+    ``launch.dryrun.run_cell`` for the seven ``DIST_CELLS`` (deepseek-7b's
+    three, qwen1.5-32b's prefill and head_dim-sharded decode, zamba2's
+    prefill and rwkv6's decode) on the production 16 x 16 mesh on the
+    card's host, one record line each; (d) the deepseek-7b smoke train
+    state as DTensors through ``CheckpointManager.save`` and
+    ``restore(..., shardings=)`` into another layout: bit-equal; (e)
+    flash with ``q_offset``: at deepseek-7b's shape and at hd 64, with
+    and without a window, the queries cut into slices at offsets 0, 512,
+    1024, 1536 and 700 (off the tile grid), each against
+    ``attention_ref`` at the same offset and the whole call's rows (2e-2).
 
 The launch counters are set to 0 just before each of phases 3-5, 8, 11
 (each model of it), 12, 13, 14, 15 (each served model), 16 (pixtral's
@@ -3137,28 +3146,47 @@ def sanitizer_phase(smi: str) -> None:
 # phase 19: repro_torch.dist and the dry run against the card
 # --------------------------------------------------------------------- #
 DIST_ARCH = "deepseek-7b"
+# 19a: the DTensor prefills on the (1, 1) mesh: (arch, impls, kernel
+# launches a prefill)
+DIST_PREFILLS = (
+    ("deepseek-7b", dict(attn_impl="flash"), {"flash_attention": 30}),
+    ("zamba2-1.2b", dict(attn_impl="flash", ssm_impl="pallas"),
+     {"ssd": 38, "flash_attention": 6}),
+    ("rwkv6-7b", dict(ssm_impl="pallas"), {"wkv6": 32}))
+DIST_PREFILL_TOL = 2e-2
 # 19b's two steps on the (1, 1) mesh: (cell, its shape here, layers)
 DIST_JOBS = (("prefill_32k", ("prefill_4x2048", 2048, 4, "prefill"), None),
              ("train_4k", ("train_4x2048", 2048, 4, "train"), TRAIN_LAYERS))
 # 19c: the production cells run on the card's host
 DIST_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
-              ("deepseek-7b", "decode_32k"), ("qwen1.5-32b", "prefill_32k"))
+              ("deepseek-7b", "decode_32k"), ("qwen1.5-32b", "prefill_32k"),
+              ("zamba2-1.2b", "prefill_32k"), ("rwkv6-7b", "decode_32k"),
+              ("qwen1.5-32b", "decode_32k"))
 PEAK_TOL = 0.10
+# 19e: flash with a query offset: (B, Hq, Hkv, S, hd, window), the query
+# slices (offset, rows) of each; the last is off every tile grid
+FLASH_OFFSET_CASES = [(4, 32, 32, 2048, hd, window)
+                      for hd in (128, 64) for window in (None, 700)]
+FLASH_OFFSET_SLICES = ((0, 512), (512, 512), (1024, 512), (1536, 512),
+                       (700, 300))
 
 
-def dtensor_prefill(M, T, E, FA, mesh) -> int:
-    """(a) deepseek-7b at full size in bf16 (phase 8's seeded weights and
-    engine), its parameters distributed by ``RULES_DECODE`` over the
-    ``(1, 1)`` CUDA mesh: a prefill of 4 x 2048 with flash and
-    ``attn_sp`` (each device's local q, k, v into the kernel) against
-    the plain-tensor prefill of phase 8 (2e-2; the same local ops run).
-    The flash counter is set to 0 just before and read just after: 30."""
+def dtensor_prefill(M, T, E, kernels: dict, mesh, arch: str, impl: dict,
+                    per_prefill: dict) -> dict:
+    """(a) ``arch`` at full size in bf16 (seeded weights drawn in bf16,
+    as phases 8 and 11 draw them), its parameters distributed by
+    ``RULES_DECODE`` over the ``(1, 1)`` CUDA mesh: a prefill of 4 x 2048
+    with ``impl`` and ``attn_sp`` (each device's local q, k, v into flash
+    at its shard's query offset, each device's rows and heads into the
+    SSD and WKV6 kernels) against the plain-tensor prefill
+    (``DIST_PREFILL_TOL``; the same local ops run).  Every kernel counter
+    is set to 0 just before the DTensor prefill and read just after:
+    ``per_prefill`` launches of each kernel, none of the others."""
     from torch.distributed.tensor import DTensor
     from repro_torch.dist import sharding as shd
     from repro_torch.launch import dryrun as DRY
-    cfg = M.get_config(DIST_ARCH).replace(attn_impl="flash")
-    check((cfg.n_layers, cfg.d_model) == FULL_SIZE[DIST_ARCH],
-          "not full size")
+    cfg = M.get_config(arch).replace(**impl)
+    check((cfg.n_layers, cfg.d_model) == FULL_SIZE[arch], "not full size")
     params = T.init_params(cfg.replace(param_dtype=cfg.dtype), seed=0,
                            device="cuda")
     engine = E.ServeEngine(cfg, params, max_len=96, device="cuda")
@@ -3172,23 +3200,97 @@ def dtensor_prefill(M, T, E, FA, mesh) -> int:
                              shd.RULES_DECODE)
     del engine
     torch.cuda.empty_cache()
-    FA.flash_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
     with DRY.step_context(mesh, shd.batch_axis(mesh, 4, shd.RULES_DECODE)):
         got = E.make_prefill_step(sp)(dparams, batch)
     torch.cuda.synchronize()
-    launches = FA.flash_attention.launches
+    seconds = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in kernels.items()}
     check(isinstance(got, DTensor), "the DTensor prefill returned no DTensor")
     err = float((got.full_tensor().float() - want.float()).abs().max())
-    log(f"dist (a): {DIST_ARCH} full size, bf16, on the (1, 1) mesh "
+    log(f"dist (a): {arch} full size, bf16, on the (1, 1) mesh "
         f"({mesh.device_type}, {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
-        f"), RULES_DECODE, flash + attn_sp: logits against the plain "
-        f"prefill max |diff| {err:.3e} (tolerance 2e-2), {launches} flash "
-        "launches")
-    check(err <= 2e-2, f"DTensor prefill logits differ by {err}")
-    check(launches == 30, f"{launches} flash launches, expected 30")
+        f"), RULES_DECODE, {impl} + attn_sp: logits against the plain "
+        f"prefill max |diff| {err:.3e} (tolerance {DIST_PREFILL_TOL}), "
+        f"launches {({n: c for n, c in counts.items() if c})}, "
+        f"{seconds:.2f} s")
+    check(err <= DIST_PREFILL_TOL, f"{arch}: DTensor prefill logits differ "
+          f"by {err}")
+    check(counts == {n: per_prefill.get(n, 0) for n in counts},
+          f"{arch}: launches {counts}, expected {per_prefill}")
     del got, want, dparams, batch
     torch.cuda.empty_cache()
-    return launches
+    return counts
+
+
+def flash_offsets(FA) -> float:
+    """(e) flash with a query offset on the card: each case's queries cut
+    into ``FLASH_OFFSET_SLICES``, each slice through the kernel at its
+    offset against ``attention_ref`` with the same offset and against
+    the same rows of the kernel's call on the whole sequence (bf16,
+    ``FLASH_TOL``).  Launches made to compare: not the main path's."""
+    worst = 0.0
+    for i, (b, hq, hkv, s, hd, window) in enumerate(FLASH_OFFSET_CASES):
+        q, k, v = flash_inputs(b, hq, hkv, s, hd, BF16, 900 + i)
+        whole = FA.flash_attention(q, k, v, window=window)
+        errs = []
+        for off, rows in FLASH_OFFSET_SLICES:
+            q_l = q[:, off:off + rows]
+            out = FA.flash_attention(q_l, k, v, window=window, q_offset=off)
+            ref = FA.attention_ref(q_l, k, v, window=window, q_offset=off)
+            torch.cuda.synchronize()
+            for other in (ref, whole[:, off:off + rows]):
+                torch.testing.assert_close(out.float(), other.float(),
+                                           **FLASH_TOL[BF16])
+            errs.append((float((out.float() - ref.float()).abs().max()),
+                         float((out.float() - whole[:, off:off + rows]
+                                .float()).abs().max())))
+        worst = max(worst, *(max(e) for e in errs))
+        log(f"flash q_offset (e): B {b} heads {hq}/{hkv} S {s} hd {hd} "
+            f"window {window} ({FA.ops.kernel_symbol(BF16, hd)}): slices "
+            + ", ".join(f"[{o}:{o + r}] {e[0]:.3e} / {e[1]:.3e}"
+                        for (o, r), e in zip(FLASH_OFFSET_SLICES, errs))
+            + " max |diff| against attention_ref / the whole call's rows "
+            f"(tolerance {FLASH_TOL[BF16]['atol']})")
+        del q, k, v, whole
+        torch.cuda.empty_cache()
+    return worst
+
+
+def checkpoint_round_trip(M, O, mesh) -> None:
+    """(d) a smoke model's train state as DTensors on the ``(1, 1)``
+    CUDA mesh (``RULES_TRAIN``) through ``CheckpointManager.save``
+    (blocking, then async and ``wait``) and ``restore(...,
+    shardings=)`` into ``RULES_DECODE``'s layout: bit-equal."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.registry import leaves
+    from repro_torch.train.step import (init_train_state,
+                                        train_state_shardings,
+                                        train_state_specs)
+    cfg = M.get_config(DIST_ARCH, smoke=True)
+    state = init_train_state(cfg, O.AdamWConfig(), seed=4,
+                             device="cuda").tree()
+    specs = train_state_specs(cfg)
+    dstate = shd.distribute(state, specs, mesh, shd.RULES_TRAIN)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        mgr = CheckpointManager(d)
+        mgr.save(1, dstate, blocking=True)
+        mgr.save(2, dstate)
+        mgr.wait()
+        sh = train_state_shardings(specs, state, mesh, shd.RULES_DECODE)
+        got, meta = mgr.restore(2, state, sh)
+    pairs = list(zip(leaves(got), leaves(state), leaves(sh)))
+    same = all(torch.equal(g.full_tensor(), w) and tuple(g.placements)
+               == tuple(s.placements) for g, w, s in pairs)
+    log(f"dist (d): {DIST_ARCH} smoke train state, {len(pairs)} leaves, "
+        f"saved sharded (RULES_TRAIN) and restored with shardings "
+        f"(RULES_DECODE) on the (1, 1) CUDA mesh: bit-equal {same}, "
+        f"step {meta['step']}")
+    check(same and meta["step"] == 2, "sharded checkpoint round trip")
 
 
 def measured_steps(DRY, SH, mesh) -> dict:
@@ -3222,27 +3324,34 @@ def measured_steps(DRY, SH, mesh) -> dict:
     return out
 
 
-def dist_phase(M, T, E, FA, kernels: dict) -> int:
-    """Phase 19: (a) ``dtensor_prefill``; (b) the dry run's predicted
-    FLOPs and peak bytes of ``DIST_JOBS`` on a ``(1, 1)`` mesh of the
-    fake group against ``measured_steps`` (FLOPs equal, peak within
-    ``PEAK_TOL``); (c) ``run_cell`` on ``DIST_CELLS`` on the production
-    16 x 16 mesh, one record line each.  Returns the flash launches."""
+def dist_phase(M, T, E, FA, kernels: dict) -> dict:
+    """Phase 19: (a) ``dtensor_prefill`` of each of ``DIST_PREFILLS``;
+    (b) the dry run's predicted FLOPs and peak bytes of ``DIST_JOBS`` on
+    a ``(1, 1)`` mesh of the fake group against ``measured_steps`` (FLOPs
+    equal, peak within ``PEAK_TOL``); (c) ``run_cell`` on ``DIST_CELLS``
+    on the production 16 x 16 mesh, one record line each; (d)
+    ``checkpoint_round_trip``; (e) ``flash_offsets``.  Returns the
+    kernels' launches in (a)."""
     import torch.distributed as dist
+    from repro_torch import optim as O
     from repro_torch.launch import dryrun as DRY
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import shapes as SH
-    for fn in kernels.values():
-        fn.launches = 0
     mesh = MESH.make_local_mesh(1, 1, "cuda")
+    launches = dict.fromkeys(kernels, 0)
     try:
-        launches = dtensor_prefill(M, T, E, FA, mesh)
+        for arch, impl, per_prefill in DIST_PREFILLS:
+            for n, c in dtensor_prefill(M, T, E, kernels, mesh, arch, impl,
+                                        per_prefill).items():
+                launches[n] += c
+        for fn in kernels.values():
+            fn.launches = 0
         got = measured_steps(DRY, SH, mesh)
+        counts = {n: fn.launches for n, fn in kernels.items()}
+        check(not any(counts.values()), f"kernel launches in (b) {counts}")
+        checkpoint_round_trip(M, O, mesh)
     finally:
         dist.destroy_process_group()
-    counts = {n: fn.launches for n, fn in kernels.items()}
-    check(counts == {n: launches if n == "flash_attention" else 0
-                     for n in counts}, f"kernel launches in (b) {counts}")
     props = torch.cuda.get_device_properties(0)
     log(f"dist: total_memory {props.total_memory} B "
         f"({props.total_memory / 2**30:.2f} GiB); launch.mesh.HBM_PER_CHIP "
@@ -3281,6 +3390,9 @@ def dist_phase(M, T, E, FA, kernels: dict) -> int:
             "dominant": r["dominant"],
             "roofline_fraction": round(r["roofline_fraction"], 5)}))
     dist.destroy_process_group()
+    worst = flash_offsets(FA)
+    log(f"flash q_offset (e): {len(FLASH_OFFSET_CASES)} cases x "
+        f"{len(FLASH_OFFSET_SLICES)} slices agree (max |diff| {worst:.3e})")
     return launches
 
 
@@ -3396,19 +3508,20 @@ def main() -> int:
     t0 = lap("phase 17", t0)
     train_runs_phase(M, O, D, TR, kernels)
     t0 = lap("phase 18", t0)
-    dist_launches = dist_phase(M, T, E, FA, kernels)
+    dist_counts = dist_phase(M, T, E, FA, kernels)
     lap("phase 19", t0)
     log(f"tpe_score launches: {parzen_launches} in the TPE phase (3), "
         f"{hpo_launches} in the HPO loop (13)")
     # launches on the serving paths: flash on deepseek-7b's, zamba2's,
-    # qwen2-moe's, mixtral's, pixtral's and qwen1.5's, and deepseek-7b's
-    # DTensor prefill
+    # qwen2-moe's, mixtral's, pixtral's and qwen1.5's, the scans on
+    # zamba2's and rwkv6's, and phase 19's DTensor prefills
     rows["flash_attention"]["launches"] = (dense["flash_attention"]
                                            + hybrid["flash_attention"]
                                            + moe["flash_attention"]
-                                           + frontends + dist_launches)
-    rows["ssd"]["launches"] = hybrid["ssd"]
-    rows["wkv6"]["launches"] = rwkv["wkv6"]
+                                           + frontends
+                                           + dist_counts["flash_attention"])
+    rows["ssd"]["launches"] = hybrid["ssd"] + dist_counts["ssd"]
+    rows["wkv6"]["launches"] = rwkv["wkv6"] + dist_counts["wkv6"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

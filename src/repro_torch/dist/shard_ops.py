@@ -35,6 +35,12 @@ the cases below go to DTensor's own op, as before.
   all-reduce each for the max, the sum of exponentials and the gold
   logit (Megatron's vocab-parallel cross-entropy); the gradient
   ``softmax - onehot`` is local.
+* ``local_map(fn, args, layouts, outs)``: any function (a scan, a decode
+  core) on each device's shards, its inputs laid out as stated and its
+  outputs wrapped with the placements stated; an input replicated over
+  a mesh dim that shards another input gets a partial sum as its
+  gradient there.  ``sum_over(t, mesh, dims)`` inside such a function
+  sums a local tensor over mesh dims (one all-reduce, differentiable).
 """
 from __future__ import annotations
 
@@ -362,3 +368,112 @@ def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     _, offset = compute_local_shape_and_global_offset(
         logits.shape, mesh, logits.placements)
     return _VocabNLL.apply(logits, labels_l, offset[last], vocab, rows)
+
+
+# ------------------------------------------------------------------ #
+# any function on each device's shards
+# ------------------------------------------------------------------ #
+def local_map(fn, args, layouts, outs) -> Any:
+    """``fn(*args)``; where some argument is a DTensor, on each device's
+    shards.  ``layouts`` gives each argument's placements (``None``: it
+    goes in as it is: a plain tensor, a number); each DTensor is laid out
+    so (a redistribution where it is not already) and taken local.  Its
+    gradient comes back laid out the same, except over a mesh dim that
+    it replicates and another argument shards: there the device used it
+    for its share of the work only, and its gradient is a partial sum.
+    ``outs`` gives the placements of each of ``fn``'s outputs (one list,
+    or a tuple of lists for a tuple of outputs); their global shapes are
+    the local ones times the shards."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    split = {i for lay in layouts if lay is not None
+             for i, p in enumerate(lay) if p.is_shard()}
+    local = []
+    for a, lay in zip(args, layouts):
+        if lay is None or not is_dtensor(a):
+            local.append(a)
+            continue
+        lay = list(lay)
+        if list(a.placements) != lay:
+            a = a.redistribute(mesh, lay)
+        grad = [Partial() if p.is_replicate() and i in split else p
+                for i, p in enumerate(lay)]
+        local.append(a.to_local(grad_placements=grad))
+    out = fn(*local)
+
+    def one(t, pl):                # evenly sharded: local x shards
+        shape = list(t.shape)
+        for n, p in zip(mesh.shape, pl):
+            if p.is_shard():
+                shape[p.dim] *= n
+        return wrap(t.contiguous(), mesh, pl, shape)
+    if isinstance(out, tuple):
+        return tuple(one(t, pl) for t, pl in zip(out, outs))
+    return one(out, outs)
+
+
+def sum_over(t: torch.Tensor, mesh: Any, dims) -> torch.Tensor:
+    """The local ``t`` summed over the mesh dims ``dims``, for use on
+    each device's shard (inside ``local_map``): one all-reduce forward,
+    and one backward, since each device's gradient of the sum is the
+    share of its own shard and each term's gradient is their sum."""
+    if mesh is None or not dims:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    whole = [Replicate()] * mesh.ndim
+    src = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    d = DTensor.from_local(t, mesh, src, run_check=False)
+    return d.redistribute(mesh, whole).to_local(grad_placements=src)
+
+
+def mesh_dims(x: Any, dim: int) -> list[int]:
+    """The mesh dims on which the DTensor ``x`` shards its dim ``dim``
+    (``[]`` for a plain tensor)."""
+    if not is_dtensor(x):
+        return []
+    dim %= x.ndim
+    return [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+
+
+def layout(ndim: int, shards: dict[int, int]) -> list:
+    """Placements over ``ndim`` mesh dims: ``Shard(shards[i])`` on the
+    mesh dims ``shards`` names, ``Replicate`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(shards[i]) if i in shards else Replicate()
+            for i in range(ndim)]
+
+
+def rows_heads_layouts(x: Any, heads: Any, roles: dict) -> dict:
+    """Placements for a block's core on each device's rows and heads, on
+    ``x``'s mesh: ``roles`` maps a name to (the dim of its rows, the dim
+    of its heads), ``None`` for a tensor whole over those mesh dims.  The
+    rows are sharded over the mesh dims that shard ``x``'s dim 0, the
+    heads over those that shard ``heads``' dim 0 (a per-head weight) and
+    not the rows.  Key ``"heads"``: those mesh dims.  On a plain ``x``
+    every role is ``None`` and ``"heads"`` empty."""
+    if not is_dtensor(x):
+        return {**dict.fromkeys(roles), "heads": []}
+    n = x.device_mesh.ndim
+    rows = mesh_dims(x, 0)
+    hd = [i for i in mesh_dims(heads, 0) if i not in rows]
+    out = {name: layout(n, {**({i: r for i in rows} if r is not None
+                                else {}),
+                            **({i: h for i in hd} if h is not None
+                               else {})})
+           for name, (r, h) in roles.items()}
+    return {**out, "heads": hd}
+
+
+def local_offset(x: Any, dim: int, placements) -> int:
+    """Where this device's shard of dim ``dim`` starts when the DTensor
+    ``x``'s mesh lays a tensor of ``x``'s shape out as ``placements``
+    (0 for a plain tensor)."""
+    if not is_dtensor(x):
+        return 0
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    _, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, list(placements))
+    return off[dim]

@@ -174,15 +174,18 @@ def tree_shardings(specs: Any, tree: Any, mesh: Any,
         specs, tree)
 
 
+def distribute_leaf(sh: Sharding, t: torch.Tensor) -> Any:
+    """``t`` as a DTensor laid out as ``sh``: every rank holds the whole
+    tensor and keeps its own shard (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, sh.mesh, list(sh.placements),
+                             src_data_rank=None)
+
+
 def distribute(tree: Any, specs: Any, mesh: Any,
                rules: Rules = RULES_TRAIN) -> Any:
     """``tree``'s tensors as DTensors laid out by ``rules``.  Every rank
     holds the whole tensor (the same seed on every rank, or ``meta``
     shapes) and keeps its own shard: no communication."""
-    from torch.distributed.tensor import distribute_tensor
-
-    def one(sh: Sharding, t: torch.Tensor):
-        return distribute_tensor(t, sh.mesh, list(sh.placements),
-                                 src_data_rank=None)
-    return tree_map_specs(lambda s, sh, t: one(sh, t), specs,
+    return tree_map_specs(lambda s, sh, t: distribute_leaf(sh, t), specs,
                           tree_shardings(specs, tree, mesh, rules), tree)

@@ -10,8 +10,11 @@
 //     l = l * exp(m - m_new) + rowsum(p); acc = acc * exp(m - m_new) + p v
 //     out = acc / (l == 0 ? 1 : l)          (fully masked rows give 0)
 //
-// with q_pos and k_pos both counted from 0 (k visible from q when
-// k_pos <= q_pos, and k_pos > q_pos - window with a window).  Scores, m,
+// with k_pos counted from 0 and q_pos from q_off (query row r sits at
+// position q_off + r: a shard of a sequence-parallel q; 0 for a whole
+// sequence), k visible from q when k_pos <= q_pos, and k_pos > q_pos -
+// window with a window.  Masks and kv-tile bounds use positions; loads
+// and stores use rows.  Scores, m,
 // l and acc are fp32; p enters the p.v product rounded to bf16, as on the
 // TPU's MXU at default precision.
 //
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ v, float* __restrict__ o,
                      Strides qs, Strides ks, Strides vs, Strides os,
                      int s_len, int t_len, int group, int causal, int window,
-                     float scale) {
+                     int q_off, float scale) {
   constexpr int QP = HD + 1;   // padded row of the q and k tiles
   constexpr int PP = kBK + 1;  // padded row of the score tile
   constexpr int CW = HD / 16;  // accumulator columns per thread
@@ -186,10 +189,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < CW; ++j) acc[i][j] = 0.f;
   }
 
-  // kv tiles some row of this q tile can see
+  // kv tiles some row of this q tile can see (positions p0 ...)
+  const int p0 = q_off + q0;
   int kt_end = (t_len + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  if (causal) kt_end = min(kt_end, (p0 + kBQ - 1) / kBK + 1);
+  const int kt_begin = window > 0 ? max(0, p0 - window + 1) / kBK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
@@ -227,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 2; ++j) {
         const int r = ty + 16 * i;
         const int c = tx + 16 * j;
-        p_t[r * PP + c] = visible(q0 + r, k0 + c, t_len, causal, window)
+        p_t[r * PP + c] = visible(p0 + r, k0 + c, t_len, causal, window)
                               ? s[i][j] * scale
                               : kMasked;
       }
@@ -246,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       }
       const float m_new = fmaxf(m_prev, mx);
-      const float p = visible(q0 + r, k0 + lane, t_len, causal, window)
+      const float p = visible(p0 + r, k0 + lane, t_len, causal, window)
                           ? expf(sv - m_new)
                           : 0.f;
       float sum = p;
@@ -383,7 +387,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          __nv_bfloat16* __restrict__ o, Strides qs,
                          Strides ks, Strides vs, Strides os, int s_len,
                          int t_len, int group, int causal, int window,
-                         float scale) {
+                         int q_off, float scale) {
   constexpr int RS = HD + 8;          // padded tile row, in bf16
   constexpr int KS = HD / 16;         // k-steps of q.k over the head dim
   constexpr int NT = kMmaBK / 8;      // 8-column tiles of the score tile
@@ -403,6 +407,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int b = blockIdx.z;
   const int hk = h / group;
   const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  const int pos0 = q_off + row0;        // and their positions
 
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
@@ -427,8 +432,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   float l[2] = {0.f, 0.f};
 
   int kt_end = (t_len + kMmaBK - 1) / kMmaBK;
-  if (causal) kt_end = min(kt_end, (q0 + kMmaBQ - 1) / kMmaBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kMmaBK : 0;
+  if (causal) kt_end = min(kt_end, (q_off + q0 + kMmaBQ - 1) / kMmaBK + 1);
+  const int kt_begin =
+      window > 0 ? max(0, q_off + q0 - window + 1) / kMmaBK : 0;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kMmaBK;
@@ -458,7 +464,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + nt * 8 + 2 * c + (e % 2);
-        const bool vis = visible(row0 + 8 * (e / 2), kp, t_len, causal, window);
+        const bool vis = visible(pos0 + 8 * (e / 2), kp, t_len, causal, window);
         s[nt][e] = vis ? s[nt][e] * scale : kMasked;
         mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
       }
@@ -478,7 +484,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + nt * 8 + 2 * c + (e % 2);
-        const bool vis = visible(row0 + 8 * (e / 2), kp, t_len, causal, window);
+        const bool vis = visible(pos0 + 8 * (e / 2), kp, t_len, causal, window);
         s[nt][e] = vis ? expf(s[nt][e] - m_new[e / 2]) : 0.f;
         sum[e / 2] += s[nt][e];
       }
@@ -906,16 +912,17 @@ struct Work {
 };
 
 __device__ __forceinline__ Work decode(int w, int n_qt, int hq, int t_len,
-                                       int causal, int window) {
+                                       int causal, int window, int q_off) {
   Work wk;
   const int qi = w % n_qt;
   wk.h = (w / n_qt) % hq;
   wk.b = w / n_qt / hq;
   wk.q0 = (causal ? n_qt - 1 - qi : qi) * kWgBQ;
-  // kv tiles some row of this q tile can see
+  // kv tiles some row of this q tile can see, from its positions
+  const int p0 = q_off + wk.q0;
   int kt_end = (t_len + kWgBK - 1) / kWgBK;
-  if (causal) kt_end = min(kt_end, (wk.q0 + kWgBQ - 1) / kWgBK + 1);
-  wk.kt_begin = window > 0 ? max(0, wk.q0 - window + 1) / kWgBK : 0;
+  if (causal) kt_end = min(kt_end, (p0 + kWgBQ - 1) / kWgBK + 1);
+  wk.kt_begin = window > 0 ? max(0, p0 - window + 1) / kWgBK : 0;
   wk.n_tiles = max(0, kt_end - wk.kt_begin);
   return wk;
 }
@@ -938,7 +945,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            const __grid_constant__ CUtensorMap to,
                            int* __restrict__ next_work, int n_work, int hq,
                            int s_len, int t_len, int group, int causal,
-                           int window, float scale_log2) {
+                           int window, int q_off, float scale_log2) {
   using Tile = WgTile<HD>;
   constexpr int kStages = Tile::kStages;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -995,7 +1002,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_arrive(work_full + 8 * slot);
         if (w >= n_work) break;
         const int next = gridDim.x + atomicAdd(next_work, 1);
-        const Work wk = decode(w, n_qt, hq, t_len, causal, window);
+        const Work wk = decode(w, n_qt, hq, t_len, causal, window, q_off);
         const int hk = wk.h / group;
         mbar_wait(q_empty, (item & 1) ^ 1);
         mbar_expect_tx(q_full, Tile::kQBytes);
@@ -1056,14 +1063,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int w = ld_shared(work + 4 * slot);
       release(work_empty + 8 * slot, lane);
       if (w >= n_work) break;
-      const Work wk = decode(w, n_qt, hq, t_len, causal, window);
+      const Work wk = decode(w, n_qt, hq, t_len, causal, window, q_off);
       const int r0 = wk.q0 + 64 * wg;
-      const int row = r0 + 16 * warp + lane / 4;  // and row + 8
+      const int p0 = q_off + r0;                  // its first position
+      const int row = p0 + 16 * warp + lane / 4;  // and row + 8: positions
       // the mask can bite only where the tile crosses the diagonal, the
       // window's edge or the end of T (uniform over the warpgroup)
       auto edge = [&](int k0) {
-        return k0 + kWgBK > t_len || (causal && k0 + kWgBK - 1 > r0) ||
-               (window > 0 && k0 <= r0 + 63 - window);
+        return k0 + kWgBK > t_len || (causal && k0 + kWgBK - 1 > p0) ||
+               (window > 0 && k0 <= p0 + 63 - window);
       };
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
@@ -1230,7 +1238,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, int* next_work, Strides qs, Strides ks,
                          Strides vs, Strides os, int batch, int hq, int hkv,
                          int s_len, int t_len, int causal, int window,
-                         cudaStream_t stream) {
+                         int q_off, cudaStream_t stream) {
   using Tile = WgTile<HD>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1255,7 +1263,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   flash_fwd_wgmma_kernel<HD><<<blocks, kWgThreads, Tile::kSmem, stream>>>(
       tq, tk, tv, to, next_work, n_work, hq, s_len, t_len, hq / hkv, causal,
-      window, scale_log2);
+      window, q_off, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1263,7 +1271,8 @@ template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        Strides qs, Strides ks, Strides vs, Strides os,
                        int batch, int hq, int hkv, int s_len, int t_len,
-                       int causal, int window, cudaStream_t stream) {
+                       int causal, int window, int q_off,
+                       cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1275,7 +1284,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      qs, ks, vs, os, s_len, t_len, hq / hkv, causal, window, scale);
+      qs, ks, vs, os, s_len, t_len, hq / hkv, causal, window, q_off, scale);
   return cudaGetLastError();
 }
 
@@ -1283,7 +1292,8 @@ template <int HD>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
                         Strides qs, Strides ks, Strides vs, Strides os,
                         int batch, int hq, int hkv, int s_len, int t_len,
-                        int causal, int window, cudaStream_t stream) {
+                        int causal, int window, int q_off,
+                        cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1294,16 +1304,16 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
-      s_len, t_len, hq / hkv, causal, window, scale);
+      s_len, t_len, hq / hkv, causal, window, q_off, scale);
   return cudaGetLastError();
 }
 
 #define FLASH_ARGS                                                        \
   q, k, v, o, qs, ks, vs, os, batch, hq, hkv, s_len, t_len, causal, window, \
-      stream
+      q_off, stream
 #define WGMMA_ARGS                                                       \
   q, k, v, o, next_work, qs, ks, vs, os, batch, hq, hkv, s_len, t_len,   \
-      causal, window, stream
+      causal, window, q_off, stream
 
 // bf16 takes the kernel of its head dim: the Hopper pipeline from hd 64
 // (one 64-column TMA box) up, mma.sync below
@@ -1311,7 +1321,7 @@ cudaError_t dispatch(int hd, int is_bf16, const void* q, const void* k,
                      const void* v, void* o, int* next_work, Strides qs,
                      Strides ks, Strides vs, Strides os, int batch, int hq,
                      int hkv, int s_len, int t_len, int causal, int window,
-                     cudaStream_t stream) {
+                     int q_off, cudaStream_t stream) {
   if (is_bf16) {
     switch (hd) {
       case 16: return launch_mma<16>(FLASH_ARGS);
@@ -1338,7 +1348,8 @@ cudaError_t dispatch(int hd, int is_bf16, const void* q, const void* k,
 // q (B, S, Hq, hd), k and v (B, T, Hkv, hd), o (B, S, Hq, hd), all of one
 // type (is_bf16: 1 bf16, 0 fp32) with a dense head dim; strides in
 // elements.  bf16 rows must start on 16-byte boundaries (pointers 16-byte
-// aligned, strides multiples of 8).  window <= 0: no window.  next_work:
+// aligned, strides multiples of 8).  window <= 0: no window.  q_off >= 0:
+// the position of q's row 0 (keys sit at 0 .. T - 1).  next_work:
 // one int32 of scratch on the device, the work counter of the Hopper
 // kernel (bf16, hd 64 and 128; unused otherwise), which the launch sets
 // to 0 on the stream.  Returns cudaGetLastError() after the launch, or
@@ -1349,8 +1360,8 @@ extern "C" int flash_attention(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int batch,
     int hq, int hkv, int s_len, int t_len, int hd, int causal, int window,
-    int is_bf16, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+    int q_off, int is_bf16, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || q_off < 0) return cudaErrorInvalidValue;
   if (is_bf16) {
     const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
@@ -1364,6 +1375,6 @@ extern "C" int flash_attention(
   return dispatch(hd, is_bf16, q, k, v, o, static_cast<int*>(next_work),
                   Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
                   Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh}, batch,
-                  hq, hkv, s_len, t_len, causal, window,
+                  hq, hkv, s_len, t_len, causal, window, q_off,
                   static_cast<cudaStream_t>(stream));
 }

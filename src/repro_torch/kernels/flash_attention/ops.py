@@ -30,23 +30,25 @@ from . import ref
 HEAD_DIMS = (16, 32, 64, 128)
 _TYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 # (q, k, v, o, work counter, 4 x (b, s, h) strides, B, Hq, Hkv, S, T, hd,
-#  causal, window, is_bf16, stream) -> cudaError_t
+#  causal, window, q_offset, is_bf16, stream) -> cudaError_t
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int64,) * 12
-             + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
+             + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int | None = None
-                  ) -> torch.Tensor:
+                  causal: bool = True, window: int | None = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """The plain version in the model layout: q (B, S, Hq, hd), k and v
-    (B, T, Hkv, hd) -> (B, S, Hq, hd)."""
+    (B, T, Hkv, hd) -> (B, S, Hq, hd); query row r at position
+    ``q_offset + r``."""
     return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal,
-                             window=window).transpose(1, 2)
+                             window=window,
+                             q_offset=q_offset).transpose(1, 2)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None) -> None:
+           window: int | None, q_offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, S, Hq, hd) and k, v (B, T, Hkv, "
                          f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -60,6 +62,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel; it takes {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError("flash_attention is forward-only (the kernel "
@@ -84,15 +88,18 @@ def kernel_symbol(dtype: torch.dtype, hd: int) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, Hq, hd); k,v: (B, T, Hkv, hd) -> (B, S, Hq, hd) in q's
-    dtype.  fp32 or bf16, hd in ``HEAD_DIMS``; causal masking is top-left
-    aligned (q and k positions both start at 0)."""
+    dtype.  fp32 or bf16, hd in ``HEAD_DIMS``.  Key t sits at position t
+    and query row r at ``q_offset + r`` (a shard of a sequence-parallel
+    q; 0: causal masking top-left aligned); the masks compare
+    positions."""
     no_dtensor("flash_attention", q, k, v)
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{name} must be {q.dtype} on {q.device}, got "
@@ -119,7 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          None if work is None else work.data_ptr(),
          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
          *out.stride()[:3], B, Hq, Hkv, S, T, hd, int(causal),
-         window or 0, _TYPE_FLAG[q.dtype])
+         window or 0, int(q_offset), _TYPE_FLAG[q.dtype])
     count_launch(flash_attention)
     return out
 

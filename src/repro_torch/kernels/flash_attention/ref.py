@@ -8,17 +8,18 @@ import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int | None = None
-                  ) -> torch.Tensor:
+                  causal: bool = True, window: int | None = None,
+                  q_offset: int = 0) -> torch.Tensor:
     """q: (B, Hq, S, hd); k,v: (B, Hkv, T, hd) -> (B, Hq, S, hd).
-    Full materialised softmax in fp32; masked scores are -inf and fully
+    Query row r sits at position ``q_offset + r``, key t at t.  Full
+    materialised softmax in fp32; masked scores are -inf and fully
     masked rows (NaN after the softmax) give 0.  Output in q's dtype."""
     B, Hq, S, hd = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     g = Hq // Hkv
     qg = q.reshape(B, Hkv, g, S, hd).float()
     s = torch.einsum("bkgsh,bkth->bkgst", qg, k.float()) / math.sqrt(hd)
-    q_pos = torch.arange(S, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(S, device=q.device)[:, None]
     k_pos = torch.arange(T, device=q.device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:

@@ -14,8 +14,10 @@ kernel on its local q, k and v, the ``blocked`` and ``ref`` cores too,
 with the shard's query positions.  ``cfg.attn_sp`` makes the attention
 sequence-parallel over the axis that ``dist.context.attention_seq_axis``
 names, as the reference's does; outside such a context it changes
-nothing.  Decode runs on the shards too, except over a head_dim-sharded
-cache (GQA heads that do not divide the mesh), which stays DTensor ops.
+nothing.  Decode runs on the shards too; over a head_dim-sharded cache
+(GQA kv heads that do not divide the mesh) each device takes partial
+scores over its slice of the head dim and one all-reduce sums them
+(``_decode_hd``), and the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -76,6 +78,8 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype
     plain product would fold B and S into one dim, which DTensor cannot
     do to a sharded S in every PyTorch version."""
     h, hd, d = wo.shape
+    if shard_ops.mesh_dims(out, 3):
+        return _out_proj_hd(out, wo, dtype)
     if is_dtensor(wo) and any(p.is_shard(1) for p in wo.placements):
         from torch.distributed.tensor import Replicate     # as in _proj
         wo = wo.redistribute(wo.device_mesh, [
@@ -84,6 +88,28 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype
     if is_dtensor(x) and any(p.is_shard(1) for p in x.placements):
         return torch.bmm(x, w.expand(x.shape[0], h * hd, d))
     return shard_ops.matmul(x, w)
+
+
+def _out_proj_hd(out: torch.Tensor, wo: torch.Tensor, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """``_out_proj`` of a head_dim-sharded ``out`` (a decode over a
+    head_dim-sharded cache): each device's slice against its rows of
+    ``wo``, a partial sum over the slices (the row-parallel product)."""
+    from torch.distributed.tensor import Partial
+    mesh, hd_dims = out.device_mesh, shard_ops.mesh_dims(out, 3)
+    rows = shard_ops.mesh_dims(out, 0)
+    lay_o = shard_ops.layout(mesh.ndim, {**{i: 0 for i in rows},
+                                         **{i: 3 for i in hd_dims}})
+    lay_w = shard_ops.layout(mesh.ndim, {i: 1 for i in hd_dims})
+    lay_y = [Partial() if i in hd_dims else p
+             for i, p in enumerate(shard_ops.layout(
+                 mesh.ndim, {i: 0 for i in rows}))]
+
+    def fn(o, w):
+        h, hd_l, d = w.shape
+        return o.reshape(*o.shape[:2], h * hd_l) @ w.reshape(h * hd_l, d)
+    return shard_ops.local_map(fn, (out, wo.to(dtype)), (lay_o, lay_w),
+                               lay_y)
 
 
 def _laid_out_as(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -125,19 +151,25 @@ def _ref_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, q_positions: torch.Tensor,
               kv_positions: torch.Tensor, kv_len: int | None = None,
               k_scale: torch.Tensor | None = None,
-              v_scale: torch.Tensor | None = None) -> torch.Tensor:
+              v_scale: torch.Tensor | None = None,
+              head_dim: int | None = None,
+              reduce_scores=None) -> torch.Tensor:
     """Reference GQA attention.  q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd).
     Masking from absolute positions ((S,) and (T,)); ``kv_len`` bounds
     valid cache entries.  ``k_scale``/``v_scale`` (B,T): int8-quantized
     KV, the scale folded into scores/probs so no dequantized cache copy
-    materializes."""
+    materializes.  A slice of the head dim (``head_dim`` the whole one)
+    gives partial scores, which ``reduce_scores`` sums over the slices;
+    the output is then the slice's own."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
     qg = q.reshape(B, S, Hkv, g, hd)
     kc = k.to(cfg.dtype) if k.dtype == torch.int8 else k
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, kc).float()
-    scores = scores / math.sqrt(hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, kc)
+    if reduce_scores is not None:
+        scores = reduce_scores(scores)
+    scores = scores.float() / math.sqrt(head_dim or hd)
     if k_scale is not None:
         scores = scores * k_scale.float()[:, None, None, None, :]
 
@@ -268,21 +300,15 @@ def _local_core(cfg: ModelConfig, q, k, v, positions: torch.Tensor,
                 impl: str) -> torch.Tensor:
     """The full-sequence core (``impl``: the flash kernel, ``blocked`` or
     ``ref``) on DTensors, each device on its own queries
-    (``_on_shards``), with the shard's query positions.  The flash
-    kernel takes no query offset, so a sequence-sharded q raises for it
-    (ROADMAP Queue 1 item 3)."""
-    S = q.shape[1]
+    (``_on_shards``), with the shard's query positions: the flash kernel
+    takes the shard's first one as its query offset."""
 
     def core(q_l, k_l, v_l, s0):
         S_l = q_l.shape[1]
         if impl == "flash":
-            if S_l != S:
-                raise NotImplementedError(
-                    "flash attention on a sequence-sharded q: the kernel "
-                    "has no query offset for a sharded causal mask; use "
-                    "attn_impl 'ref' or 'blocked' (ROADMAP Queue 1 item 3)")
             return fa_ops.flash_attention(q_l, k_l, v_l, causal=True,
-                                          window=cfg.sliding_window)
+                                          window=cfg.sliding_window,
+                                          q_offset=s0)
         if impl == "blocked":
             return _blocked_core(cfg, q_l, k_l, v_l, q_offset=s0)
         return _ref_core(cfg, q_l, k_l, v_l, positions[s0:s0 + S_l],
@@ -377,26 +403,60 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor, kv: dict,
     if cfg.kv_quant:
         kq, ks = _quantize_token(k)
         vq, vs = _quantize_token(v)
-        kv["k"][:, slot] = kq[:, 0]
-        kv["v"][:, slot] = vq[:, 0]
-        kv["k_scale"][:, slot] = ks[:, 0]
-        kv["v_scale"][:, slot] = vs[:, 0]
-        scales = (kv["k_scale"], kv["v_scale"])
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
-        kv["k"][:, slot] = k[:, 0]
-        kv["v"][:, slot] = v[:, 0]
-        scales = ()
+        writes = {"k": k, "v": v}
+    hd_dims = shard_ops.mesh_dims(kv["k"], 3)
+    if hd_dims:
+        # a head_dim-sharded cache: written and read on each device's
+        # slice, never gathered (``_decode_hd``)
+        out = _decode_hd(cfg, q, kv, writes, slot, hd_dims,
+                         dict(q_positions=positions,
+                              kv_positions=kv_positions, kv_len=kv_len))
+        return _out_proj(out, p["wo"], cfg.dtype), kv
+    for name, t in writes.items():
+        kv[name][:, slot] = t[:, 0]
+    scales = (kv["k_scale"], kv["v_scale"]) if cfg.kv_quant else ()
 
     def core(q_l, k_l, v_l, s0, *scales_l):
         return _ref_core(cfg, q_l, k_l, v_l, q_positions=positions,
                          kv_positions=kv_positions, kv_len=kv_len,
                          **dict(zip(("k_scale", "v_scale"), scales_l)))
-    if is_dtensor(q) and not any(
-            n > 1 and p.is_shard(3) for t in (q, kv["k"])
-            for n, p in zip(t.device_mesh.shape, t.placements)):
-        # each device on its own rows and heads (a head_dim-sharded
-        # cache stays DTensor ops: gathering it would copy the cache)
+    if is_dtensor(q):
+        # each device on its own rows and heads
         out = _on_shards(q, kv["k"], kv["v"], core, scales)
     else:
         out = core(q, kv["k"], kv["v"], 0, *scales)
     return _out_proj(out, p["wo"], cfg.dtype), kv
+
+
+def _decode_hd(cfg: ModelConfig, q, kv: dict, writes: dict, slot: int,
+               hd_dims: list[int], masks: dict):
+    """Decode over a cache whose head dim is sharded over the mesh dims
+    ``hd_dims`` (GQA kv heads that do not divide them), as XLA lays the
+    reference's out: each device writes the new token's slice into its
+    shard of the cache, takes the partial scores q_l . k_l^T over its
+    head_dim slice, sums them with one all-reduce over ``hd_dims``, runs
+    the softmax itself and gives p . v_l, its own slice of the output (no
+    second reduction).  The int8 cache's (B, T) scales apply after the
+    sum.  The cache is never gathered.  -> out (B,1,Hq,hd), head_dim
+    sharded as the cache."""
+    mesh, hd = q.device_mesh, q.shape[3]
+    names = ("k", "v", *(("k_scale", "v_scale") if cfg.kv_quant else ()))
+    # each cache tensor taken as it is laid out (no copy: the writes land
+    # in its shards), the new token's values laid out the same
+    lays = [list(kv[n].placements) for n in names]
+
+    def fn(q_l, *ts):
+        new, cached = ts[:len(names)], ts[len(names):]
+        for c, t in zip(cached, new):
+            c[:, slot] = t[:, 0]
+        return _ref_core(
+            cfg, q_l, cached[0], cached[1], **masks,
+            **dict(zip(("k_scale", "v_scale"), cached[2:])),
+            head_dim=hd,
+            reduce_scores=lambda s: shard_ops.sum_over(s, mesh, hd_dims))
+    with torch.no_grad():
+        return shard_ops.local_map(
+            fn, (q, *(writes[n] for n in names), *(kv[n] for n in names)),
+            (lays[0], *lays, *lays), lays[0])

@@ -85,8 +85,30 @@ def init_rmsnorm(mk: ParamInit, d: int, dtype: Any,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
-    """On DTensors on each device's rows (``dist.shard_ops.rowwise``)."""
+    """On DTensors on each device's rows (``dist.shard_ops.rowwise``);
+    where the normed dim is itself sharded (a block's inner width over
+    its heads), on each device's shard of it, with one all-reduce of the
+    sum of squares."""
+    dims = shard_ops.mesh_dims(x, -1)
+    if dims:
+        return _rmsnorm_sharded(x, w, eps, dims)
     return shard_ops.rowwise(functools.partial(_rmsnorm, eps=eps), x, w)
+
+
+def _rmsnorm_sharded(x: torch.Tensor, w: torch.Tensor, eps: float,
+                     dims: list[int]) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate
+    mesh, n = x.device_mesh, x.shape[-1]
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    wl = shard_ops.layout(mesh.ndim, {i: 0 for i in dims})
+
+    def fn(x, w):
+        dt = x.dtype
+        x = x.float()
+        ss = shard_ops.sum_over(torch.sum(x * x, dim=-1, keepdim=True),
+                                mesh, dims)
+        return (x * torch.rsqrt(ss / n + eps) * w.float()).to(dt)
+    return shard_ops.local_map(fn, (x, w), (pl, wl), pl)
 
 
 def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -9,12 +9,24 @@ rounds.
 Decode keeps O(1) state per layer: the SSM state (B,nh,hd,d_state) plus a
 (d_conv-1)-deep causal-conv tail.  ``mamba2_decode`` writes the new state
 into the tensors of ``state`` in place (the reference returns new arrays).
+
+On DTensors (``repro_torch.dist``) the products run on each device's
+shards (``dist.shard_ops.matmul``) and the core between them (conv, scan
+or step, skip term, gate) on each device's rows and heads
+(``shard_ops.local_map``): the SSD kernel gets its local shards; B and C,
+shared by every head, stay whole over the heads' mesh dims, their
+gradients partial sums over them; the norm over the sharded inner width
+takes one all-reduce of its sum of squares.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import shard_ops
+from ..dist.context import is_dtensor
 from ..kernels.mamba2_ssd import ops as ssd_ops
 from .config import ModelConfig
 from .layers import ParamInit, rmsnorm
@@ -137,40 +149,79 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def _project(p: dict, cfg: ModelConfig, u: torch.Tensor):
-    """-> (z, [x, B, C] before the conv, dt in float32)."""
-    dt_ = cfg.dtype
-    z = u @ p["in_z"].to(dt_)
-    xbc = torch.cat([u @ p["in_x"].to(dt_), u @ p["in_b"].to(dt_),
-                     u @ p["in_c"].to(dt_)], dim=-1)
-    dt = F.softplus((u @ p["in_dt"].to(dt_)).float()
-                    + p["dt_bias"].float())
-    return z, xbc, dt
+    """-> (z, x, B, C, dt before its softplus), the products in
+    ``cfg.dtype``; on DTensors on each device's shards."""
+    us = shard_ops.fan_out(u, 5)
+    return tuple(shard_ops.matmul(t, p[k].to(cfg.dtype)) for t, k in
+                 zip(us, ("in_z", "in_x", "in_b", "in_c", "in_dt")))
 
 
-def _output(p: dict, cfg: ModelConfig, y: torch.Tensor, xh: torch.Tensor,
-            z: torch.Tensor, shape: torch.Size) -> torch.Tensor:
-    d_inner = _dims(cfg)[0]
-    y = y + xh * p["d_skip"].to(cfg.dtype)[:, None]
-    y = y.reshape(*shape[:2], d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out"].to(cfg.dtype)
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim; a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    whole = [Replicate()] * t.device_mesh.ndim
+    return t if list(t.placements) == whole else t.redistribute(
+        t.device_mesh, whole)
+
+
+# the core's placements on each device's rows and heads
+# (``shard_ops.rows_heads_layouts``): x, z and dt carry both, B and C
+# (shared by every head) the rows only, the per-head weights the heads,
+# the conv's weights neither (each device slices its channels), the state
+# (b, nh, hd, ds) both
+_ROLES = {"x": (0, 2), "bc": (0, None), "head": (None, 0),
+          "conv": (None, None), "h": (0, 1)}
+
+
+def _gated_core(cfg: ModelConfig, d_inner: int, x0: int, x, B, C, dt,
+                dt_bias, conv_w, conv_b, a_log, d_skip, z):
+    """The sequence block between its projections and its norm, on whole
+    tensors or on one device's rows and heads: x and z (b,S,d) the
+    channels of its heads, which start at channel ``x0``; B, C (b,S,ds);
+    dt (b,S,nh) before its softplus; conv_w (K, d_inner + 2 ds) and
+    conv_b whole.  -> (y + D x) * silu(z), (b,S,d)."""
+    d, ds = x.shape[-1], B.shape[-1]
+    if d != d_inner:             # this device's channels of x, then B, C
+        conv_w = torch.cat([conv_w[:, x0:x0 + d], conv_w[:, d_inner:]], -1)
+        conv_b = torch.cat([conv_b[x0:x0 + d], conv_b[d_inner:]], -1)
+    xbc = _causal_conv(torch.cat([x, B, C], dim=-1), conv_w, conv_b)
+    xb, Bv, Cv = torch.split(xbc, [d, ds, ds], dim=-1)
+    dt = F.softplus(dt.float() + dt_bias.float())
+    xh = xb.unflatten(-1, (-1, cfg.ssm.head_dim))       # a view: no copy
+    if cfg.ssm_impl == "pallas":
+        y, _ = ssd_ops.ssd(xh, dt.to(cfg.dtype), a_log, Bv, Cv,
+                           chunk=cfg.ssm.chunk)
+    else:
+        y, _ = ssd_chunked(xh, dt.to(cfg.dtype), a_log, Bv, Cv,
+                           chunk=cfg.ssm.chunk)
+    y = y + xh * d_skip.to(cfg.dtype)[:, None]
+    return y.flatten(2) * F.silu(z)
+
+
+def _output(p: dict, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """The gated output through the norm (over the sharded inner width on
+    DTensors) and the output projection."""
+    y = rmsnorm(y, p["norm"], cfg.norm_eps)
+    return shard_ops.matmul(y, p["out"].to(cfg.dtype))
 
 
 def mamba2_seq(p: dict, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
-    """Full-sequence Mamba2 block.  u: (B,S,d_model)."""
-    d_inner, nh, hd, ds = _dims(cfg)
-    z, xbc, dt = _project(p, cfg, u)
-    xbc = _causal_conv(xbc, p["conv_w"].to(cfg.dtype),
-                       p["conv_b"].to(cfg.dtype))
-    xb, Bv, Cv = torch.split(xbc, [d_inner, ds, ds], dim=-1)
-    xh = xb.unflatten(-1, (nh, hd))                # a view: no copy
-    if cfg.ssm_impl == "pallas":
-        y, _ = ssd_ops.ssd(xh, dt.to(cfg.dtype), p["a_log"], Bv, Cv,
-                           chunk=cfg.ssm.chunk)
-    else:
-        y, _ = ssd_chunked(xh, dt.to(cfg.dtype), p["a_log"], Bv, Cv,
-                           chunk=cfg.ssm.chunk)
-    return _output(p, cfg, y, xh, z, u.shape)
+    """Full-sequence Mamba2 block.  u: (B,S,d_model).  On DTensors the
+    core (conv, scan, skip term and gate) runs on each device's rows and
+    heads (``_ROLES``); no sharded dim is folded."""
+    d_inner = _dims(cfg)[0]
+    z, x, B, C, dt = _project(p, cfg, u)
+    L = shard_ops.rows_heads_layouts(u, p["a_log"], _ROLES)
+    x0 = shard_ops.local_offset(x, 2, L["x"])
+    y = shard_ops.local_map(
+        functools.partial(_gated_core, cfg, d_inner, x0),
+        (x, B, C, dt, p["dt_bias"], _whole(p["conv_w"].to(cfg.dtype)),
+         _whole(p["conv_b"].to(cfg.dtype)), p["a_log"], p["d_skip"], z),
+        (L["x"], L["bc"], L["bc"], L["x"], L["head"], L["conv"],
+         L["conv"], L["head"], L["head"], L["x"]), L["x"])
+    return _output(p, cfg, y)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, mk: ParamInit,
@@ -186,19 +237,38 @@ def init_mamba2_state(cfg: ModelConfig, batch: int, mk: ParamInit,
                        cfg.dtype, (*A, "batch", None, "mlp"), init="zeros")}
 
 
+def _gated_step(cfg: ModelConfig, xb, B, C, dt, dt_bias, a_log, d_skip,
+                z, h):
+    """One token of the core after the conv, on whole tensors or on one
+    device's rows and heads: xb, z (b,1,d); B, C (b,1,ds); dt (b,1,nh)
+    before its softplus; h (b,nh,hd,ds).  -> ((y + D x) * silu(z), new
+    h)."""
+    dt = F.softplus(dt.float() + dt_bias.float())
+    xh = xb[:, 0].unflatten(-1, (-1, cfg.ssm.head_dim))
+    y, h = ssd_step(xh, dt[:, 0].to(cfg.dtype), a_log, B[:, 0], C[:, 0], h)
+    y = y + xh * d_skip.to(cfg.dtype)[:, None]
+    return y.flatten(1)[:, None] * F.silu(z), h
+
+
 def mamba2_decode(p: dict, cfg: ModelConfig, u: torch.Tensor,
                   state: dict) -> torch.Tensor:
     """One-token decode.  u: (B,1,d_model); state: {"h","conv"}, updated
-    in place."""
+    in place.  On DTensors the step after the conv runs on each
+    device's rows and heads, as ``mamba2_seq``'s core does."""
     d_inner, nh, hd, ds = _dims(cfg)
-    z, xbc, dt = _project(p, cfg, u)                           # (B,1,.)
+    z, x, B, C, dt = _project(p, cfg, u)                       # (B,1,.)
+    xbc = torch.cat([x, B, C], dim=-1)
     conv_in = torch.cat([state["conv"], xbc], dim=1)           # (B,K,d_xbc)
     w, b = p["conv_w"].to(cfg.dtype), p["conv_b"].to(cfg.dtype)
     out = F.silu((conv_in * w[None]).sum(1) + b)[:, None]      # (B,1,d_xbc)
     state["conv"].copy_(conv_in[:, 1:])
     xb, Bv, Cv = torch.split(out, [d_inner, ds, ds], dim=-1)
-    xh = xb[:, 0].reshape(-1, nh, hd)
-    y, h = ssd_step(xh, dt[:, 0].to(cfg.dtype), p["a_log"], Bv[:, 0],
-                    Cv[:, 0], state["h"])
+    L = shard_ops.rows_heads_layouts(u, p["a_log"], _ROLES)
+    y, h = shard_ops.local_map(
+        functools.partial(_gated_step, cfg),
+        (xb, Bv, Cv, dt, p["dt_bias"], p["a_log"], p["d_skip"], z,
+         state["h"]),
+        (L["x"], L["bc"], L["bc"], L["x"], L["head"], L["head"],
+         L["head"], L["x"], L["h"]), (L["x"], L["h"]))
     state["h"].copy_(h)
-    return _output(p, cfg, y, xh, z, u.shape)
+    return _output(p, cfg, y)

@@ -12,13 +12,26 @@ reference's path of the same name casts them.
 Includes token-shift for the time-mix and the RWKV channel-mix FFN.
 ``rwkv6_decode`` writes the new state into the tensors of ``state`` in
 place (the reference returns new arrays).
+
+On DTensors (``repro_torch.dist``) the products run on each device's
+shards (``dist.shard_ops``), and the scan or step on each device's rows
+and heads (``shard_ops.local_map``): r, k, v, logw, u and the state keep
+the heads' sharding and the WKV6 kernel gets its local shards.  ``ln_x``
+norms the whole width, as the reference's does (``layers.rmsnorm``: one
+all-reduce of the sum of squares); each device gates its heads'
+channels and projects them with its rows of ``out`` (a partial sum).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import shard_ops
+from ..dist.context import is_dtensor, reduce_partial
 from ..kernels.rwkv6_scan import ops as wkv_ops
+from .attention import _proj
 from .config import ModelConfig
 from .layers import ParamInit, rmsnorm
 
@@ -146,45 +159,87 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor
     return x + (xs - x) * mu
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
-           ) -> torch.Tensor:
-    """(B,S,d) x (d,nh,hd) -> (B,S,nh,hd), product in ``dtype``."""
-    d, nh, hd = w.shape
-    return (x @ w.to(dtype).reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+def _logw(w0: torch.Tensor, lw: torch.Tensor) -> torch.Tensor:
+    """The data-dependent decay's negative log from ``w0`` and the LoRA
+    product ``lw`` (B,S,nh,hd): float32, in (-inf, 0)."""
+    wraw = w0.float() + lw.float()
+    return -torch.exp(-0.5 + wraw)
 
 
 def _time_mix_inputs(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      xs: torch.Tensor):
-    """-> (r, k, v, g, logw float32), r/k/v/logw (B,S,nh,hd)."""
+    """-> (r, k, v, g, lw), r/k/v and the decay's LoRA product lw
+    (B,S,nh,hd) (``_logw`` makes the decay of it).  On DTensors each
+    mixed input's gradient is laid out as the input before the mix
+    (``fan_out``): the mix runs on whole rows."""
     dt = cfg.dtype
-    xr, xk, xv, xw, xg = (_mix(x, xs, p[f"mix_{c}"].to(dt))
-                          for c in "rkvwg")
-    r = _heads(xr, p["wr"], dt)
-    k = _heads(xk, p["wk"], dt)
-    v = _heads(xv, p["wv"], dt)
-    g = F.silu(xg @ p["wg"].to(dt))
+    xu, xsu = shard_ops.fan_out(x, 5), shard_ops.fan_out(xs, 5)
+    xr, xk, xv, xw, xg = (shard_ops.fan_out(_mix(a, b, p[f"mix_{c}"].to(dt)),
+                                            1)[0]
+                          for a, b, c in zip(xu, xsu, "rkvwg"))
+    # (B,S,d) x (d,nh,hd) -> (B,S,nh,hd), on DTensors on the shards
+    r = _proj(xr, p["wr"], dt)
+    k = _proj(xk, p["wk"], dt)
+    v = _proj(xv, p["wv"], dt)
+    g = F.silu(shard_ops.matmul(xg, p["wg"].to(dt)))
     # data-dependent decay (negative log)
-    lora = torch.tanh(xw) @ p["wa"].to(dt)
-    wraw = p["w0"].float() + _heads(lora, p["wb"], dt).float()
-    logw = -torch.exp(-0.5 + wraw)               # in (-inf, 0)
-    return r, k, v, g, logw
+    lora = shard_ops.matmul(torch.tanh(xw), p["wa"].to(dt))
+    return r, k, v, g, _proj(lora, p["wb"], dt)
+
+
+# the time mix's placements on each device's rows and heads
+# (``shard_ops.rows_heads_layouts``): r, k, v, the decay's LoRA product
+# and the output's channels carry both, the per-head weights (w0, u)
+# the heads, the state (b, nh, hd, hd) both
+_ROLES = {"rkv": (0, 2), "head": (None, 0), "S": (0, 1)}
+
+
+def _out(p: dict, cfg: ModelConfig, o: torch.Tensor, g: torch.Tensor,
+         heads: list[int]) -> torch.Tensor:
+    """The time mix's output (B,S,d) normed over its whole width, gated
+    and projected; on DTensors each device gates its heads' channels
+    (g laid out as o) and projects them with its rows of ``out``, a
+    partial sum."""
+    out = p["out"].to(cfg.dtype)
+    if is_dtensor(o):
+        from torch.distributed.tensor import Shard
+        mesh = o.device_mesh
+        if list(g.placements) != list(o.placements):
+            g = g.redistribute(mesh, list(o.placements))
+        want = [Shard(0) if i in heads else q
+                for i, q in enumerate(out.placements)]
+        if list(out.placements) != want:
+            out = out.redistribute(mesh, want)
+    return shard_ops.matmul(rmsnorm(o, p["ln_x"], cfg.norm_eps) * g, out)
+
+
+def _scan(cfg: ModelConfig, chunk: int, r, k, v, w0, lw, u, S0=None):
+    """The chunked WKV6 on whole tensors or one device's rows and heads
+    -> (o (b,S,nh*hd), S_final)."""
+    logw = _logw(w0, lw)
+    if cfg.ssm_impl == "pallas":
+        o, S_fin = wkv_ops.wkv6(r, k, v, logw.to(cfg.dtype),
+                                u.to(cfg.dtype), chunk=chunk, S0=S0)
+    else:
+        o, S_fin = wkv6_chunked(r, k, v, logw, u, chunk=chunk, S0=S0)
+    return o.flatten(2), S_fin
 
 
 def rwkv6_seq(p: dict, cfg: ModelConfig, x: torch.Tensor,
               shift_prev: torch.Tensor | None = None,
               S0: torch.Tensor | None = None, return_state: bool = False):
-    """Full-sequence RWKV6 time-mix.  x: (B,S,d)."""
-    r, k, v, g, logw = _time_mix_inputs(p, cfg, x, _token_shift(x,
-                                                                shift_prev))
+    """Full-sequence RWKV6 time-mix.  x: (B,S,d).  On DTensors the scan
+    runs on each device's rows and heads (``_ROLES``)."""
+    r, k, v, g, lw = _time_mix_inputs(p, cfg, x, _token_shift(x,
+                                                              shift_prev))
     chunk = cfg.ssm.chunk if cfg.ssm else 64
-    if cfg.ssm_impl == "pallas":
-        o, S_fin = wkv_ops.wkv6(r, k, v, logw.to(cfg.dtype),
-                                p["u"].to(cfg.dtype), chunk=chunk, S0=S0)
-    else:
-        o, S_fin = wkv6_chunked(r, k, v, logw, p["u"], chunk=chunk, S0=S0)
-    o = o.reshape(*x.shape[:2], cfg.d_model)
-    o = rmsnorm(o, p["ln_x"], cfg.norm_eps) * g
-    out = o @ p["out"].to(cfg.dtype)
+    L = shard_ops.rows_heads_layouts(x, p["u"], _ROLES)
+    rkv, hh, S = L["rkv"], L["head"], L["S"]
+    o, S_fin = shard_ops.local_map(
+        functools.partial(_scan, cfg, chunk),
+        (r, k, v, p["w0"], lw, p["u"], S0),
+        (rkv, rkv, rkv, hh, rkv, hh, S), (rkv, S))
+    out = _out(p, cfg, o, g, L["heads"])
     if return_state:
         return out, (x[:, -1:], S_fin)
     return out
@@ -210,11 +265,12 @@ def channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 shift_prev: torch.Tensor | None = None) -> torch.Tensor:
     dt = cfg.dtype
     xs = _token_shift(x, shift_prev)
-    xk = _mix(x, xs, p["mix_k"].to(dt))
-    xr = _mix(x, xs, p["mix_r"].to(dt))
-    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    kv = k @ p["wv"].to(dt)
-    return torch.sigmoid(xr @ p["wr"].to(dt)) * kv
+    (xa, xb), (xsa, xsb) = shard_ops.fan_out(x, 2), shard_ops.fan_out(xs, 2)
+    xk = shard_ops.fan_out(_mix(xa, xsa, p["mix_k"].to(dt)), 1)[0]
+    xr = shard_ops.fan_out(_mix(xb, xsb, p["mix_r"].to(dt)), 1)[0]
+    k = torch.square(torch.relu(shard_ops.matmul(xk, p["wk"].to(dt))))
+    kv = reduce_partial(shard_ops.matmul(k, p["wv"].to(dt)))
+    return torch.sigmoid(shard_ops.matmul(xr, p["wr"].to(dt))) * kv
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, mk: ParamInit,
@@ -230,15 +286,25 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, mk: ParamInit,
             "shift_c": mk(shift, cfg.dtype, ax, init="zeros")}
 
 
+def _step(r, k, v, w0, lw, u, S):
+    """One token of WKV6 on whole tensors or one device's rows and heads:
+    r, k, v, lw (b,1,nh,hd) -> (o (b,1,nh*hd), new S)."""
+    logw = _logw(w0, lw)
+    o, S = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u, S)
+    return o.flatten(1)[:, None], S
+
+
 def rwkv6_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: dict
                  ) -> torch.Tensor:
     """One-token time-mix decode.  x: (B,1,d); state: {"S", "shift"},
-    updated in place (``shift`` becomes ``x``)."""
-    r, k, v, g, logw = _time_mix_inputs(p, cfg, x, state["shift"])
-    o, S = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["u"],
-                     state["S"])
-    state["S"].copy_(S)
+    updated in place (``shift`` becomes ``x``).  On DTensors the step
+    runs on each device's rows and heads, as ``rwkv6_seq``'s scan."""
+    r, k, v, g, lw = _time_mix_inputs(p, cfg, x, state["shift"])
+    L = shard_ops.rows_heads_layouts(x, p["u"], _ROLES)
+    rkv, hh, S = L["rkv"], L["head"], L["S"]
+    o, S_new = shard_ops.local_map(
+        _step, (r, k, v, p["w0"], lw, p["u"], state["S"]),
+        (rkv, rkv, rkv, hh, rkv, hh, S), (rkv, S))
+    state["S"].copy_(S_new)
     state["shift"].copy_(x)
-    o = o.reshape(x.shape[0], 1, cfg.d_model)
-    o = rmsnorm(o, p["ln_x"], cfg.norm_eps) * g
-    return o @ p["out"].to(cfg.dtype)
+    return _out(p, cfg, o, g, L["heads"])

@@ -13,6 +13,9 @@ inspect_cell}``) on the CPU.
 * one cell (deepseek-7b decode_32k at full size) runs end to end on an
   8-device fake mesh in a fresh process, and its numbers extended from
   2 and 3 layers equal a run at the full 30;
+* in scan cells and a head_dim-sharded decode cell on the 16 x 16 mesh,
+  the scan, step and decode cores take plain local tensors only, and
+  the decode gathers no cache tensor;
 * the dry-run modules import with ``jax`` blocked.
 """
 import importlib
@@ -231,6 +234,61 @@ def test_one_cell_end_to_end_on_an_8_device_mesh():
     assert full["live"] > cache / 8
     assert full["flops"] * 8 >= dryrun.model_flops(cfg,
                                                    shp.SHAPES["decode_32k"])
+
+
+_LOCAL_CORES = r"""
+import json
+from repro_torch.dist.context import is_dtensor
+from repro_torch.launch import dryrun, mesh as MESH
+from repro_torch.models import attention, mamba2, rwkv6
+seen = {}
+
+def spy(mod, name):
+    fn = getattr(mod, name)
+    def wrapped(*args, **kwargs):
+        key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        got = [is_dtensor(a) for a in (*args, *kwargs.values())]
+        seen.setdefault(key, set()).update(got)
+        return fn(*args, **kwargs)
+    setattr(mod, name, wrapped)
+for mod, name in ((mamba2, "ssd_chunked"), (mamba2, "ssd_step"),
+                  (rwkv6, "wkv6_chunked"), (rwkv6, "wkv6_step"),
+                  (attention, "_ref_core")):
+    spy(mod, name)
+mesh = MESH.make_production_mesh(multi_pod=False)
+rows = {}
+for arch, shape in CELLS:
+    ext, cfg = dryrun.measure_cell(arch, shape, mesh, record=True)
+    rows[f"{arch} {shape}"] = [k for k in ext if k.startswith("rows/")]
+print(json.dumps({"seen": {k: sorted(v) for k, v in seen.items()},
+                  "rows": rows}))
+"""
+
+
+@pytest.mark.parametrize("cells,cores", [
+    ([("rwkv6-7b", "prefill_32k"), ("zamba2-1.2b", "decode_32k")],
+     {"rwkv6.wkv6_chunked", "mamba2.ssd_step"}),
+    ([("mixtral-8x7b", "decode_32k")], {"attention._ref_core"})])
+def test_scan_and_head_dim_decode_cores_take_local_tensors(cells, cores):
+    """On the 16 x 16 mesh, in a scan cell and a head_dim-sharded decode
+    cell, the scan, step and decode cores are handed each device's plain
+    shards, never a DTensor (PyTorch 2.11's DTensor refuses the folds of
+    sharded heads and head dims that their einsums make), and the decode
+    cell gathers no cache tensor (an all-gather whose output has the
+    cache's length)."""
+    proc = _run(f"CELLS = {cells!r}\n" + _LOCAL_CORES, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert cores <= set(out["seen"]), out["seen"]
+    assert all(v == [False] for v in out["seen"].values()), out["seen"]
+    for (arch, shape), names in zip(cells, out["rows"].values()):
+        if shape.startswith("decode") or shape == "long_500k":
+            cfg = shp.configure_for_cell(get_config(arch),
+                                         shp.SHAPES[shape])
+            T = shp.decode_cache_len(cfg, shp.SHAPES[shape])
+            gathers = [n for n in names
+                       if "all_gather" in n and f", {T}, " in n]
+            assert gathers == [], gathers
 
 
 _BLOCKED = r"""

@@ -116,6 +116,27 @@ def test_plain_version_matches_reference_oracle(causal, window):
                                got.numpy(), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("offset", [0, 64, 37])
+def test_query_offset_gives_the_rows_of_the_whole_sequence(offset, window):
+    """Queries at positions ``offset ..`` (a shard of a sequence-parallel
+    q; 37 is off every tile grid): the plain version and the op on the
+    CPU equal those rows of the reference's plain path over the whole
+    sequence, GQA 8:2, fp32 within 1e-5."""
+    S, S_l = 256, 64
+    q, k, v = _inputs(2, 8, 2, S, S, 32, seed=offset + 1)
+    want = np.asarray(ref_ops.attention_ref(
+        *_reference((q, k, v), "float32"), causal=True, window=window))
+    q_l = q[:, offset:offset + S_l]
+    got = attention_ref(*_port((q_l, k, v), "float32"), causal=True,
+                        window=window, q_offset=offset)
+    np.testing.assert_allclose(got.numpy(), want[:, offset:offset + S_l],
+                               rtol=1e-5, atol=1e-5)
+    op = flash_attention(*_port((q_l, k, v), "float32"), causal=True,
+                         window=window, q_offset=offset)
+    np.testing.assert_array_equal(op.numpy(), got.numpy())
+
+
 def test_op_raises_when_autograd_would_reach_it():
     q, k, v = _port(_inputs(1, 2, 2, 16, 16, 16, seed=0), "float32")
     q.requires_grad_(True)
@@ -139,6 +160,8 @@ def test_op_raises_on_bad_shapes_and_window():
     q, k, v = _port(_inputs(1, 2, 2, 16, 16, 16, seed=0), "float32")
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q, k, v, q_offset=-1)
 
 
 @pytest.mark.parametrize("dtype,hd,symbol", [

@@ -9,9 +9,10 @@ card's host.
 Imports ``chip_smoke.py`` and ``repro_torch`` from the checkout at ROOT
 (default: the current directory; JAX and the JAX package stay blocked,
 as ``chip_smoke.py`` blocks them), builds the kernels and runs phase 19:
-deepseek-7b's DTensor prefill with flash on a one-rank CUDA mesh, the
-dry run's predicted FLOPs and peak bytes against the card's, and four
-production cells on the 16 x 16 mesh.  With ``--all`` it then runs
+deepseek-7b's, zamba2-1.2b's and rwkv6-7b's DTensor prefills with their
+kernels on a one-rank CUDA mesh, the dry run's predicted FLOPs and peak
+bytes against the card's, seven production cells on the 16 x 16 mesh,
+a sharded checkpoint's round trip and flash with query offsets.  With ``--all`` it then runs
 ``python -m repro_torch.launch.dryrun --arch ARCH --mesh MESH --out DIR``
 (default DIR: ``experiments/dryrun``) for every architecture, ``--jobs``
 at a time in fresh processes, each stopped after ``--cell-seconds``
