@@ -39,6 +39,7 @@ import urllib.parse
 import uuid
 from typing import Any, Iterator
 
+from .. import spans
 from .transport import Transport
 
 
@@ -198,9 +199,10 @@ class Client:
         body: dict[str, Any] = {"worker_id": worker_id or self.worker_id}
         if parallelism is not None:
             body["parallelism"] = parallelism
-        return self._call(
-            "POST", f"/api/v2/studies/{study_key}/trials:ask",
-            body, op="ask")
+        with spans.span("client.ask"):
+            return self._call(
+                "POST", f"/api/v2/studies/{study_key}/trials:ask",
+                body, op="ask")
 
     def ask_batch(self, study_key: str, n: int,
                   worker_id: str | None = None,
@@ -219,10 +221,11 @@ class Client:
         # the key is constant across every retry of this logical tell:
         # a resend after a lost response (or a failover replay) makes
         # the server return the original result instead of a 409
-        return self._call(
-            "POST", f"/api/v2/trials/{trial_uid}:tell",
-            {"value": value, "state": state,
-             "idempotency_key": uuid.uuid4().hex}, op="tell")
+        with spans.span("client.tell"):
+            return self._call(
+                "POST", f"/api/v2/trials/{trial_uid}:tell",
+                {"value": value, "state": state,
+                 "idempotency_key": uuid.uuid4().hex}, op="tell")
 
     def tell_batch(self, tells: list[dict[str, Any]]
                    ) -> list[dict[str, Any]]:

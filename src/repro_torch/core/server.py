@@ -25,6 +25,10 @@ proceed fully in parallel; there is no global server lock.  Lease
 expiry is driven by the storage's per-study deadline min-heap, so
 sweeps touch only expired entries instead of scanning every trial.
 
+Under a profiler each sampler call records ``sampler.suggest``
+(``repro_torch.spans``): on the ask path and in the speculative
+precompute, with the proposals asked and the observations read.
+
 Hot-path cost model: `ask` syncs the observation cache (O(1) when
 nothing completed, O(new) otherwise — never a history rescan) and hands
 it to the sampler; intermediate reports aggregate over the study's
@@ -55,6 +59,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from .. import spans
 from . import faults
 from .api import ApiError, build_openapi, build_router
 from .api.router import Router
@@ -639,14 +644,19 @@ class HopaasServer:
                     # single-ask miss (the contended hot path): one
                     # fused draw, no intra-batch re-chunking
                     kwargs["chunk"] = remaining + extra
-            if remaining == 1 and not extra:
-                params_list = [ctx.sampler.suggest(
-                    ctx.space, study.trials, ctx.config.direction, ctx.rng,
-                    **kwargs)]
-            else:
-                params_list = ctx.sampler.suggest_batch(
-                    ctx.space, study.trials, ctx.config.direction, ctx.rng,
-                    remaining + extra, **kwargs)
+            cache = kwargs.get("cache")
+            with spans.span("sampler.suggest", path="ask",
+                            proposals=remaining + extra,
+                            observations=(len(study.trials) if cache is None
+                                          else cache.count)):
+                if remaining == 1 and not extra:
+                    params_list = [ctx.sampler.suggest(
+                        ctx.space, study.trials, ctx.config.direction,
+                        ctx.rng, **kwargs)]
+                else:
+                    params_list = ctx.sampler.suggest_batch(
+                        ctx.space, study.trials, ctx.config.direction,
+                        ctx.rng, remaining + extra, **kwargs)
             if extra:
                 ctx.spec.publish(self.storage.data_version(ctx.key),
                                  params_list[remaining:])
@@ -727,9 +737,11 @@ class HopaasServer:
         done = 0
         while done < depth:
             k = min(slice_n, depth - done)
-            proposals = sampler.suggest_batch(
-                ctx.space, [], ctx.config.direction, rng, k,
-                cache=view, chunk=k)
+            with spans.span("sampler.suggest", path="precompute",
+                            proposals=k, observations=view.count):
+                proposals = sampler.suggest_batch(
+                    ctx.space, [], ctx.config.direction, rng, k,
+                    cache=view, chunk=k)
             if not proposals:
                 break
             if not ctx.spec.publish(snap.version, proposals):

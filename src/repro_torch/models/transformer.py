@@ -17,7 +17,10 @@ beside its output, and the stack sums it over the layers.  The audio
 frontend (hubert) takes the place of the token embedding; the vision
 adapter (pixtral) prepends its patch embeddings to the tokens', and the
 loss scores the text positions only.  Decode is token-only, as the
-reference's is.
+reference's is.  Under a profiler the attention block records
+``model.attention`` and ``model.mlp`` and the head ``model.head``
+(``repro_torch.spans``; a checkpointed block records them again when
+its backward recomputes it).
 
 On DTensors (``repro_torch.dist``) each block re-asserts the
 activations' batch layout where the reference does (``constrain_batch``),
@@ -33,6 +36,7 @@ from typing import Any, Callable
 import torch
 from torch.utils import checkpoint as ckpt
 
+from .. import spans
 from ..core.kernels import resolve_device
 from ..dist import shard_ops
 from ..dist.context import constrain_batch, gather_weights, reduce_partial
@@ -203,10 +207,13 @@ def _attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     x = constrain_batch(x)          # re-assert DP sharding at block entry
     p = gather_weights(p)
-    x = x + reduce_partial(attn_mod.attention(
-        p["attn"], cfg, rmsnorm(x, p["norm1"], cfg.norm_eps), positions))
-    y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
-    return x + reduce_partial(y), aux
+    with spans.span("model.attention"):
+        x = x + reduce_partial(attn_mod.attention(
+            p["attn"], cfg, rmsnorm(x, p["norm1"], cfg.norm_eps), positions))
+    with spans.span("model.mlp"):
+        y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
+        x = x + reduce_partial(y)
+    return x, aux
 
 
 def _rwkv_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -281,11 +288,12 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
 def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
     # the stack's output as a value (the reference's scan carry is one)
-    x = constrain_batch(x)
-    (x,) = shard_ops.fan_out(rmsnorm(
-        x, gather_weights(params["final_norm"]), cfg.norm_eps), 1)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return shard_ops.matmul(x, gather_weights(head).to(cfg.dtype))
+    with spans.span("model.head", positions=x.shape[-2]):
+        x = constrain_batch(x)
+        (x,) = shard_ops.fan_out(rmsnorm(
+            x, gather_weights(params["final_norm"]), cfg.norm_eps), 1)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return shard_ops.matmul(x, gather_weights(head).to(cfg.dtype))
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict

@@ -14,6 +14,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.kernels import resolve_device
 from ..models import transformer
 from ..models.config import ModelConfig
@@ -55,10 +56,15 @@ def cast_params(params: dict, cfg: ModelConfig,
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill(params, batch) -> logits: the full-sequence forward (cache
-    writes are folded into decode, as in the reference)."""
+    writes are folded into decode, as in the reference), recorded under a
+    profiler as ``serve.prefill`` with its rows and prompt tokens
+    (``repro_torch.spans``)."""
     @torch.no_grad()
     def prefill(params: dict, batch: dict) -> torch.Tensor:
-        logits, _ = transformer.forward(params, cfg, batch)
+        rows, length = batch["tokens" if "tokens" in batch
+                             else "features"].shape[:2]
+        with spans.span("serve.prefill", rows=rows, tokens=rows * length):
+            logits, _ = transformer.forward(params, cfg, batch)
         return logits
     return prefill
 

@@ -6,6 +6,9 @@ reference's ``cast_weights``), gradients of ``transformer.loss_fn`` with
 respect to that copy (per-layer remat inside the model), optional
 microbatched accumulation in fp32 over the reference's strided split,
 then the AdamW update, written into ``state``'s tensors in place.
+Under a profiler each phase records a span (``repro_torch.spans``):
+``step.cast``, ``step.forward`` and ``step.backward`` a microbatch,
+``step.optimizer``.
 
 On a mesh the state is a tree of DTensors (``train_state_shardings``,
 ``repro_torch.dist.sharding.distribute``): ``batch_axis`` lays each
@@ -22,6 +25,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import spans
 from ..dist import sharding as shd
 from ..dist.context import is_dtensor
 from ..models import transformer
@@ -120,22 +124,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             return t.redistribute(mesh, rows)
         return {k: one(v) for k, v in mb.items()}
 
-    def grads_of(params_c: dict, batch: dict
+    def grads_of(params_c: dict, batch: dict, j: int = 0
                  ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
-        """(loss, parts, gradients), the first two detached so that no
-        graph outlives the call, the gradients on ``grad_shardings``."""
-        loss, parts = transformer.loss_fn(params_c, cfg, batch)
-        grads = list(torch.autograd.grad(_plain(loss),
-                                         list(leaves(params_c))))
-        if shardings is not None:
-            grads = [g.redistribute(s.mesh, list(s.placements))
-                     for g, s in zip(grads, shardings)]
+        """(loss, parts, gradients) of microbatch ``j``, the first two
+        detached so that no graph outlives the call, the gradients on
+        ``grad_shardings``."""
+        with spans.span("step.forward", microbatch=j):
+            loss, parts = transformer.loss_fn(params_c, cfg, batch)
+        with spans.span("step.backward", microbatch=j):
+            grads = list(torch.autograd.grad(_plain(loss),
+                                             list(leaves(params_c))))
+            if shardings is not None:
+                grads = [g.redistribute(s.mesh, list(s.placements))
+                         for g, s in zip(grads, shardings)]
         return (_plain(loss).detach(),
                 {k: _plain(v).detach() for k, v in parts.items()}, grads)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params, opt_state = state["params"], state["opt_state"]
-        params_c = cast_weights(cfg, params)
+        with spans.span("step.cast"):
+            params_c = cast_weights(cfg, params)
         mesh = getattr(next(leaves(params)), "device_mesh", None)
         if n_microbatches == 1:
             loss, parts, grads = grads_of(params_c, constrain_mb(batch, mesh))
@@ -150,7 +158,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 # dim sharded (the reference's strided resplit)
                 mb = {k: v.unflatten(0, (B // n, n))[:, j]
                       for k, v in batch.items()}
-                l, _, g = grads_of(params_c, constrain_mb(mb, mesh))
+                l, _, g = grads_of(params_c, constrain_mb(mb, mesh), j)
                 if j == 0:      # 0 + g: a fp32 copy (autograd may alias)
                     acc = [t.float() if t.dtype != torch.float32
                            else t.clone() for t in g]
@@ -165,8 +173,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             loss = loss * inv
             parts = {"ce": loss, "moe_aux": torch.zeros_like(loss)}
         del params_c
-        new_params, new_opt, opt_metrics = adamw_update(
-            _unflatten(params, grads), opt_state, params, opt_cfg)
+        with spans.span("step.optimizer"):
+            new_params, new_opt, opt_metrics = adamw_update(
+                _unflatten(params, grads), opt_state, params, opt_cfg)
         metrics = {"loss": loss.float(),
                    **{k: _plain(v) for k, v in opt_metrics.items()},
                    **{k: v.float() for k, v in parts.items()}}

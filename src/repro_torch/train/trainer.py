@@ -19,6 +19,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import spans
 from ..checkpoint import CheckpointManager
 from ..core.kernels import resolve_device
 from ..data import DataConfig, SyntheticLMDataset
@@ -68,42 +69,59 @@ class Trainer:
                      if tcfg.checkpoint_dir else None)
 
     def run(self, report: ReportFn | None = None) -> TrainResult:
+        """Train from a fresh state (or the latest checkpoint) to
+        ``total_steps``, calling ``report`` every ``report_every`` steps.
+        Under a profiler it records ``trainer.run`` over the call and,
+        inside it, ``trainer.init``, then a step's ``trainer.batch``,
+        ``trainer.step``, ``trainer.sync`` and ``trainer.report``
+        (``repro_torch.spans``)."""
         t0 = time.time()
         tc = self.tcfg
-        state = init_train_state(self.model_cfg, self.opt_cfg, tc.seed,
-                                 self.device).tree()
-        start_step, restored_from = 0, None
-        if self.ckpt is not None:
-            got = self.ckpt.restore_latest(state)
-            if got is not None:
-                state, meta = got
-                start_step = int(meta["step"])
-                restored_from = start_step
+        with spans.span("trainer.run") as run_attrs:
+            with spans.span("trainer.init"):
+                state = init_train_state(self.model_cfg, self.opt_cfg,
+                                         tc.seed, self.device).tree()
+                start_step, restored_from = 0, None
+                if self.ckpt is not None:
+                    got = self.ckpt.restore_latest(state)
+                    if got is not None:
+                        state, meta = got
+                        start_step = int(meta["step"])
+                        restored_from = start_step
 
-        losses, pruned, executed = [], False, 0
-        for step, batch in self.dataset.iter_from(start_step):
-            if step >= tc.total_steps:
-                break
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in batch.items()}
-            state, metrics = self._step_fn(state, batch)
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            executed += 1
-            if not np.isfinite(loss):
-                raise FloatingPointError(f"loss diverged at step {step}: {loss}")
-            if tc.log_every and step % tc.log_every == 0:
-                print(f"  step {step:5d}  loss {loss:.4f}  "
-                      f"gnorm {float(metrics['grad_norm']):.3f}")
-            if self.ckpt is not None and tc.checkpoint_every and \
-                    (step + 1) % tc.checkpoint_every == 0:
-                self.ckpt.save(step + 1, state)
-            if report is not None and (step + 1) % tc.report_every == 0:
-                if report(step + 1, loss):
-                    pruned = True
-                    break
-        if self.ckpt is not None:
-            self.ckpt.wait()
+            losses, pruned, executed = [], False, 0
+            batches = self.dataset.iter_from(start_step)
+            for _ in range(start_step, tc.total_steps):
+                with spans.span("trainer.batch") as attrs:
+                    step, batch = next(batches)
+                    batch = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in batch.items()}
+                    attrs["bytes"] = sum(v.nbytes for v in batch.values())
+                with spans.span("trainer.step", step=step,
+                                tokens=batch["labels"].numel()):
+                    state, metrics = self._step_fn(state, batch)
+                with spans.span("trainer.sync"):
+                    loss = float(metrics["loss"])
+                losses.append(loss)
+                executed += 1
+                if not np.isfinite(loss):
+                    raise FloatingPointError(
+                        f"loss diverged at step {step}: {loss}")
+                if tc.log_every and step % tc.log_every == 0:
+                    print(f"  step {step:5d}  loss {loss:.4f}  "
+                          f"gnorm {float(metrics['grad_norm']):.3f}")
+                if self.ckpt is not None and tc.checkpoint_every and \
+                        (step + 1) % tc.checkpoint_every == 0:
+                    self.ckpt.save(step + 1, state)
+                if report is not None and (step + 1) % tc.report_every == 0:
+                    with spans.span("trainer.report") as attrs:
+                        pruned = bool(report(step + 1, loss))
+                        attrs["pruned"] = pruned
+                    if pruned:
+                        break
+            if self.ckpt is not None:
+                self.ckpt.wait()
+            run_attrs["steps"] = executed
         return TrainResult(
             final_loss=losses[-1] if losses else float("nan"),
             losses=losses, steps_run=executed, pruned=pruned,
