@@ -84,14 +84,19 @@ def load_cell(name: str, man: dict | None = None) -> Cell:
     return Cell(name, w, config, traffic, limits, e2e, per)
 
 
-def metric_reader(name: str) -> Callable[[dict], float | None]:
-    """``metrics/<name>.py``'s ``read(record)``."""
-    path = BENCH / "metrics" / f"{name}.py"
+def bench_module(rel: str):
+    """The module of the file ``rel`` under the benchmark's folder, loaded
+    from its path (a metric's name holds dots, so it is no module name)."""
     spec = importlib.util.spec_from_file_location(
-        f"hopaas_bench_metric_{re.sub(r'[^A-Za-z0-9_]', '_', name)}", path)
+        f"hopaas_bench_{re.sub(r'[^A-Za-z0-9_]', '_', rel[:-3])}", BENCH / rel)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str) -> Callable[[dict], float | None]:
+    """``metrics/<name>.py``'s ``read(record)``."""
+    return bench_module(f"metrics/{name}.py").read
 
 
 def driver(kind: str):
@@ -107,15 +112,36 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SIZE_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
              "d_ff", "vocab_size", "rope_theta", "norm_eps",
              "shared_attn_period")
-GROUPS = ("ssm", "rwkv", "moe")
+
+
+def config_groups(conf: dict, cfg) -> list[str]:
+    """The configuration file's groups: its keys that name a field of the
+    port's configuration ``cfg`` whose value is a dataclass (``moe``,
+    ``ssm``, ``rwkv``, or a group of a ``ModelConfig`` subclass: the
+    fields are read from the instance).  Raises where the file gives a
+    group (a dict) for a field that the port's arch leaves unset."""
+    out = []
+    for f in dataclasses.fields(cfg):
+        if f.name not in conf:
+            continue
+        if dataclasses.is_dataclass(getattr(cfg, f.name)):
+            out.append(f.name)
+        elif isinstance(conf[f.name], dict):
+            raise ValueError(f"{conf['name']}: group {f.name!r} in the "
+                             f"file, none in the port's {conf['arch']!r}")
+    return out
 
 
 def model_config(conf: dict, mode: str):
     """The port's configuration as the file states it: the registry's
-    ``conf["arch"]`` with the file's sizes (``SIZE_KEYS``, and the groups
-    of ``GROUPS`` it gives) and the ``mode`` ("train" or "serve")
-    implementation settings; raises where the file's block is not the
-    port's."""
+    ``conf["arch"]`` with the file's sizes (``SIZE_KEYS``, and each of its
+    groups, ``config_groups``, as the file gives its keys) and the
+    ``mode`` ("train" or "serve") implementation settings; raises where
+    the file's block is not the port's.  A configuration whose port
+    config carries a group of its own (a ``ModelConfig`` subclass with
+    another dataclass field, registered under its arch) joins by its
+    file alone: that group's keys reach the port as the file states
+    them."""
     from repro_torch.models.registry import get_config
 
     cfg = get_config(conf["arch"], smoke=conf.get("smoke", False))
@@ -124,7 +150,7 @@ def model_config(conf: dict, mode: str):
                          f"file, {cfg.block!r} in the port")
     sizes = {k: conf[k] for k in SIZE_KEYS if k in conf}
     sizes.update({g: dataclasses.replace(getattr(cfg, g), **conf[g])
-                  for g in GROUPS if g in conf})
+                  for g in config_groups(conf, cfg)})
     impl = dict(conf[mode])
     for k in ("dtype", "param_dtype"):
         if k in impl:

@@ -3,6 +3,8 @@ kernels launched inside the port's ``step.cast`` spans, a window step
 (ms)."""
 from hopaas_bench.program import launched_ms, log_split, per
 
+PLANTED = ("train", 2.0)  # the tests: record (planted.py), reading
+
 
 def read(rec: dict) -> float | None:
     log_split(rec)

@@ -5,6 +5,8 @@ from hopaas_bench.program import idle_ms, log_split, per
 
 LOOP = {"trainer.init", "trainer.batch", "trainer.sync", "trainer.report"}
 
+PLANTED = ("train", 14.0)  # the tests: record (planted.py), reading
+
 
 def read(rec: dict) -> float | None:
     log_split(rec)

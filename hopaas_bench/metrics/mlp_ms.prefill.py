@@ -3,6 +3,8 @@ device time of the kernels launched inside the port's ``model.mlp``
 spans, a window request (ms)."""
 from hopaas_bench.program import launched_ms, log_split, per
 
+PLANTED = ("prefill", 12.0)  # the tests: record (planted.py), reading
+
 
 def read(rec: dict) -> float | None:
     log_split(rec)

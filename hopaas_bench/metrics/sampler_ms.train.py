@@ -3,6 +3,8 @@
 the window (ms)."""
 from hopaas_bench.program import program_spans
 
+PLANTED = ("train", 4.0)  # the tests: record (planted.py), reading
+
 
 def read(rec: dict) -> float | None:
     asks = [s for s in program_spans(rec, {"sampler.suggest"}) or ()

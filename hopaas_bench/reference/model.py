@@ -3,6 +3,14 @@ embedding, RMSNorm, rotary attention, the gated MLP, the final norm and
 LM head, the loss), and the stack itself found by the configuration's
 ``block`` in ``reference/<block>.py``.
 
+A block joins by that file alone: its ``stack(ref, x)`` runs the layers
+on the embedded rows (``ref.run_block`` recomputes each in the backward)
+and may leave a training term in ``ref.train_term``, a scalar tensor
+computed in the same forward (a router's balance loss), which
+``Reference.loss`` adds to the cross-entropy.  ``train.py`` takes the
+loss a row at a time over the number of rows, so a per-sequence term is
+split by row as the cross-entropy is.
+
 Written from the published equations, not from the program.  The
 parameters are a tree with the program's keys and layouts (the
 benchmark makes them and hands the same tree to both sides); the
@@ -101,6 +109,7 @@ class Reference:
         self.low = control == "fp8"
         self.remat = remat
         self.eps = cfg.get("norm_eps", 1e-5)
+        self.train_term: torch.Tensor | None = None
 
     def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w.float().reshape(x.shape[-1], -1)
@@ -147,7 +156,9 @@ class Reference:
 
     def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """The stack's output (b,S,d) before the final norm: the embedding,
-        then ``reference/<block>.py``'s ``stack``."""
+        then ``reference/<block>.py``'s ``stack``.  Resets ``train_term``
+        to zero (None) first: the stack may set it."""
+        self.train_term = None
         x = self.p["embed"][tokens.long()].float()
         try:
             block = importlib.import_module(
@@ -170,8 +181,12 @@ class Reference:
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor
              ) -> torch.Tensor:
-        """Mean next-token cross-entropy over every position."""
+        """Mean next-token cross-entropy over every position, plus the
+        training term the stack left (``train_term``), under the same
+        compute (the fp8 control rounds it too).  With no term the loss is
+        the cross-entropy alone, op for op."""
         with self._compute():
             logits = self.logits(self.hidden(tokens))
-            return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                   labels.reshape(-1).long())
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1).long())
+            return ce if self.train_term is None else ce + self.train_term

@@ -1,13 +1,18 @@
 """``BENCHMARK.json`` against the benchmark's contract, the files each
 name in it points to, and the traffic's dependence on the seed."""
+import dataclasses
 import json
 import re
 
 import numpy as np
 import pytest
+from repro_torch.models import registry
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import get_config
 
 from hopaas_bench import harness
 from hopaas_bench.drivers import hpo_train, prefill
+from hopaas_bench.testing import bench_copy, tiny_cell
 
 MAN = harness.manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -90,7 +95,8 @@ PUBLISHED = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
 def test_config_files_state_the_published_sizes(conf):
     """Every published size the file runs is the published one, but for
     the keys ``reduced`` names, which it runs at ``as_run``'s size; the
-    port is built at the file's sizes."""
+    port is built at the file's sizes, and each of its groups at the
+    file's keys."""
     data = json.loads((harness.ROOT / conf["file"]).read_text())
     pub = data["published"]
     assert conf["reduced"] == data["reduced"]
@@ -107,7 +113,72 @@ def test_config_files_state_the_published_sizes(conf):
         for key in harness.SIZE_KEYS:
             if key in data:
                 assert getattr(cfg, key) == data[key], key
+        for group in harness.config_groups(data, cfg):
+            for key, value in data[group].items():
+                assert getattr(getattr(cfg, group), key) == value, (group,
+                                                                    key)
         assert cfg.tie_embeddings == pub["tie_word_embeddings"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentConfig:
+    kv_lora_rank: int
+    rope_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentModelConfig(ModelConfig):
+    latent: LatentConfig | None = None
+
+
+def _latent(smoke: bool, rank: int, rope: int):
+    base = get_config("deepseek-7b", smoke=smoke)
+    return LatentModelConfig(**{f.name: getattr(base, f.name)
+                                for f in dataclasses.fields(base)},
+                             latent=LatentConfig(rank, rope))
+
+
+def test_a_port_config_group_reaches_the_port_and_the_smoke_cell(
+        tmp_path, monkeypatch):
+    """A configuration whose port config carries a group of its own (a
+    ``ModelConfig`` subclass, registered under a test-only arch), added
+    as a later change adds one, by new files and entries: the port gets
+    the file's group, the smoke cell the smoke configuration's, and the
+    published sizes' test takes the file as it stands."""
+    registry.list_archs()                       # the real archs first
+    monkeypatch.setitem(registry._REGISTRY, "test-latent",
+                        lambda: _latent(False, 512, 64))
+    monkeypatch.setitem(registry._SMOKE, "test-latent",
+                        lambda: _latent(True, 8, 4))
+    bench = bench_copy(tmp_path, monkeypatch)
+    conf = json.loads((bench / "configs" / "deepseek-7b.depth10.json")
+                      .read_text())
+    conf.update(name="latent.depth10", arch="test-latent",
+                latent={"kv_lora_rank": 256, "rope_head_dim": 64})
+    (bench / "configs" / "latent.depth10.json").write_text(json.dumps(conf))
+    (bench / "limits" / "latent.hpo_train.json").write_text(
+        (bench / "limits" / "deepseek-7b.hpo_train.json").read_text())
+    man = harness.manifest()
+    entry = {**man["configs"][0], "name": "latent.depth10",
+             "file": "hopaas_bench/configs/latent.depth10.json"}
+    man["configs"].append(entry)
+    man["workloads"].append({**man["workloads"][0], "name": "latent.hpo_train",
+                             "config": "latent.depth10"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+
+    for mode in ("train", "serve"):
+        cfg = harness.model_config(conf, mode)
+        assert cfg.latent == LatentConfig(256, 64)
+        assert harness.config_groups(conf, cfg) == ["latent"]
+    tiny = tiny_cell("latent.hpo_train").config
+    assert tiny["latent"] == {"kv_lora_rank": 8, "rope_head_dim": 4}
+    assert harness.model_config(tiny, "train").latent == LatentConfig(8, 4)
+    test_config_files_state_the_published_sizes(entry)
+    # a group the port's arch leaves unset, or a key its group lacks
+    with pytest.raises(ValueError, match="group 'moe'"):
+        harness.model_config({**conf, "moe": {"top_k": 6}}, "train")
+    with pytest.raises(TypeError):
+        harness.model_config({**conf, "latent": {"q_lora_rank": 0}}, "train")
 
 
 def test_prefill_traffic_follows_the_seed():
@@ -139,8 +210,6 @@ def test_campaign_traffic_follows_the_seed():
 def test_campaign_proposals_follow_the_seed():
     """The same seed gives the same trial parameters through the
     service; another seed gives others."""
-    from hopaas_bench.testing import tiny_cell
-
     def proposals(seed):
         svc = hpo_train.Service("cpu", "test")
         try:

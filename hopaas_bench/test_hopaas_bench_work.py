@@ -1,13 +1,16 @@
 """The frozen work counts: model FLOPs against PyTorch's FLOP counter on
 the products of a forward, and the kernel bounds against the ones that
 measured the port's kernels."""
+import sys
+import types
+
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from hopaas_bench import harness
 from hopaas_bench.testing import tiny_cell
-from hopaas_bench.work import bounds, flops
+from hopaas_bench.work import bounds, flops, flops_attn
 
 
 def test_bounds_give_back_the_measured_kernels_bounds():
@@ -46,7 +49,7 @@ def test_weight_products_match_the_flop_counter(cell):
     # visible ones
     bmm = sum(v for k, v in counted.items() if "bmm" in str(k))
     assert bmm == (b * flops.stack(conf).attention_layers(conf)
-                   * conf["n_heads"] * 4 * conf["head_dim"] * s * s)
+                   * conf["n_heads"] * flops.pair_flops(conf) * s * s)
 
 
 def test_forward_flops_add_attention_pairs_and_scale_with_batch():
@@ -56,6 +59,27 @@ def test_forward_flops_add_attention_pairs_and_scale_with_batch():
 
     def attn(s):
         return (flops.stack(conf).attention_layers(conf) * conf["n_heads"]
-                * 4 * conf["head_dim"] * bounds.visible_pairs(s))
+                * flops.pair_flops(conf) * bounds.visible_pairs(s))
     assert one - attn(16) == 16 * (flops.forward_flops(conf, 1, 1) - attn(1))
     assert flops.train_flops(conf, 1, 16) == 3 * one
+
+
+def test_a_blocks_pair_flops_set_the_attention_count(monkeypatch):
+    """A block whose query and key heads are wider than its value heads
+    (latent attention: 192 and 128) gives its own pair count, and moves
+    ``forward_flops`` by exactly that; the dense block's count is as it
+    was, so ``mfu.train`` and ``mfu.prefill`` read as before."""
+    conf = harness.load_cell("deepseek-7b.hpo_train").config
+    assert flops.pair_flops(conf) == 4 * conf["head_dim"] == 512
+    assert flops.forward_flops(conf, 4, 2048) == 41_404_155_822_080
+    standin = types.ModuleType("hopaas_bench.work.flops_standin")
+    standin.weight_flops = flops_attn.weight_flops
+    standin.attention_layers = flops_attn.attention_layers
+    standin.pair_flops = lambda c: 2 * (192 + 128)
+    monkeypatch.setitem(sys.modules, standin.__name__, standin)
+    wide = {**conf, "block": "standin"}
+    assert flops.pair_flops(wide) == 640
+    assert (flops.forward_flops(wide, 4, 2048)
+            - flops.forward_flops(conf, 4, 2048)) == (
+        4 * conf["n_layers"] * conf["n_heads"] * (640 - 512)
+        * bounds.visible_pairs(2048))
