@@ -153,8 +153,12 @@ def _ref_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               k_scale: torch.Tensor | None = None,
               v_scale: torch.Tensor | None = None,
               head_dim: int | None = None,
-              reduce_scores=None) -> torch.Tensor:
-    """Reference GQA attention.  q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd).
+              reduce_scores=None, scale: float | None = None
+              ) -> torch.Tensor:
+    """Reference GQA attention.  q, k: (B,S,Hq,hd), (B,T,Hkv,hd); v:
+    (B,T,Hkv,hv), hv hd but for latent attention's narrower values; the
+    output is v's width.  The scores are scaled by ``scale``, or divided
+    by the root of the head dim.
     Masking from absolute positions ((S,) and (T,)); ``kv_len`` bounds
     valid cache entries.  ``k_scale``/``v_scale`` (B,T): int8-quantized
     KV, the scale folded into scores/probs so no dequantized cache copy
@@ -169,7 +173,10 @@ def _ref_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     scores = torch.einsum("bskgh,btkh->bkgst", qg, kc)
     if reduce_scores is not None:
         scores = reduce_scores(scores)
-    scores = scores.float() / math.sqrt(head_dim or hd)
+    if scale is None:
+        scores = scores.float() / math.sqrt(head_dim or hd)
+    else:
+        scores = scores.float() * scale
     if k_scale is not None:
         scores = scores * k_scale.float()[:, None, None, None, :]
 
@@ -191,7 +198,7 @@ def _ref_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     probs = probs.to(cfg.dtype)
     vc = v.to(cfg.dtype) if v.dtype == torch.int8 else v
     out = torch.einsum("bkgst,btkh->bskgh", probs, vc)
-    return out.reshape(B, S, Hq, hd)
+    return out.reshape(B, S, Hq, v.shape[-1])
 
 
 def _blocked_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,

@@ -28,6 +28,43 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """DeepSeekMoE (arXiv:2401.06066, as DeepSeek-V2 runs it): a router
+    in fp32, top-k by softmax, ungated shared experts, no token dropped,
+    and a per-sequence balance loss at ``aux_alpha``.  A device holds
+    ``experts_held`` of the router's ``n_experts`` routed experts, from
+    ``expert_offset`` on (expert parallelism: each device computes its
+    own experts' part of the layer)."""
+    experts_held: int = 0          # 0 -> all n_experts
+    expert_offset: int = 0
+    aux_alpha: float = 0.001
+
+    @property
+    def held(self) -> int:
+        return self.experts_held or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434) with no
+    query compression: per head a ``qk_nope_head_dim`` content part and
+    a ``qk_rope_head_dim`` rotary part of query and key, the key's rotary
+    part one vector for all heads, keys and values from an RMS-normed
+    ``kv_lora_rank`` latent; rotary angles by YaRN."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    # the scores' YaRN temperature; cos and sin keep scale 1, as
+    # DeepSeek-V2's other mscale equals this one and their ratio scales them
+    mscale_all_dim: float = 0.707
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:                   # Mamba2 / SSD
     d_state: int = 64
     d_conv: int = 4
@@ -118,3 +155,12 @@ class ModelConfig:
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAModelConfig(ModelConfig):
+    """``block="mla_moe"``: MLA in every layer, a dense SwiGLU MLP in the
+    first ``first_dense`` layers and DeepSeekMoE (``moe``, a
+    ``DeepSeekMoEConfig``) in the rest."""
+    mla: MLAConfig | None = None
+    first_dense: int = 0

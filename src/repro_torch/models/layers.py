@@ -165,11 +165,44 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (S,) int."""
+def yarn_correction_range(dim: int, theta: float, beta_fast: float,
+                          beta_slow: float, original_max_position: int
+                          ) -> tuple[int, int]:
+    """The rotary pairs YaRN leaves whole and those it interpolates
+    fully: the floor and the ceiling of the pair index that turns
+    ``beta_fast`` and ``beta_slow`` times over the original context,
+    clamped to the pairs (DeepSeek-V2's ``yarn_find_correction_range``)."""
+    def pair(turns: float) -> float:
+        return (dim * math.log(original_max_position / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(pair(beta_fast)), 0),
+            min(math.ceil(pair(beta_slow)), dim - 1))
+
+
+def yarn_frequencies(head_dim: int, theta: float, factor: float,
+                     beta_fast: float, beta_slow: float,
+                     original_max_position: int,
+                     device: torch.device | None = None) -> torch.Tensor:
+    """YaRN's inverse frequencies (arXiv:2309.00071): f / ``factor`` (1 -
+    m) + f m, f the plain ones, m 1 below the correction range, 0 above
+    it and a linear ramp between.  cos and sin are not rescaled here:
+    DeepSeek-V2's two mscales are equal, so their ratio is 1."""
+    lo, hi = yarn_correction_range(head_dim, theta, beta_fast, beta_slow,
+                                   original_max_position)
+    f = rope_frequencies(head_dim, theta, device)
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - lo) / max(hi - lo, 1e-3), 0.0, 1.0)
+    m = 1.0 - ramp
+    return f / factor * (1.0 - m) + f * m
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               inv_freq: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) int.  ``inv_freq`` (hd/2,): the
+    inverse frequencies, where not the plain ones of ``theta`` (YaRN's)."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)                # (hd/2,)
+    freqs = (rope_frequencies(hd, theta, x.device) if inv_freq is None
+             else inv_freq)                                     # (hd/2,)
     angles = positions[:, None, None].float() * freqs            # (S,1,hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1f, x2f = x[..., : hd // 2].float(), x[..., hd // 2:].float()

@@ -48,12 +48,18 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Active-per-token params (MoE: top_k + shared experts only)."""
+    """Active-per-token params (MoE: top_k + shared experts only).  Only
+    the MoE layers count experts (``mla_moe``'s leading dense layers hold
+    none), and of those only the experts the config holds
+    (``DeepSeekMoEConfig.held``): a token's top_k picks fall among them
+    top_k x held / n_experts times, on average."""
     total = count_params(cfg)
     if cfg.moe is None:
         return total
     m = cfg.moe
     per_expert = 3 * cfg.d_model * m.d_expert
-    routed_total = cfg.n_layers * m.n_experts * per_expert
-    routed_active = cfg.n_layers * m.top_k * per_expert
+    layers = cfg.n_layers - getattr(cfg, "first_dense", 0)
+    held = getattr(m, "held", m.n_experts)
+    routed_total = layers * held * per_expert
+    routed_active = layers * m.top_k * held * per_expert // m.n_experts
     return total - routed_total + routed_active

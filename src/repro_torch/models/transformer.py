@@ -6,13 +6,18 @@ Covers, through ``cfg.block``:
   * ``mamba2`` — pure SSD stack                          [ssm]
   * ``zamba2`` — SSD backbone + weight-tied shared attention block every
                  ``shared_attn_period`` layers           [hybrid]
+  * ``mla_moe`` — latent attention (``mla``) + a dense MLP in the first
+                 ``first_dense`` layers (``dense_blocks``), DeepSeekMoE
+                 (``deepseek_moe``) in the rest (``blocks``)
+                 [DeepSeek-V2; training and prefill, no decode yet]
 
 Layers are stacked along a leading ``layers`` dim, as in the reference,
 and walked with a Python loop over one ``torch.unbind`` of each stacked
 leaf.  Under autograd each block is checkpointed when ``cfg.remat``
-(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="nothing"``
-keeps only the block's inputs, ``"dots"`` also keeps the outputs of the
-2-D projection and MLP products.  An MoE block returns its aux loss
+(``torch.utils.checkpoint``, non-reentrant; ``mla_moe``'s blocks by
+``_Recompute``): ``remat_policy="nothing"`` keeps only the block's
+inputs, ``"dots"`` also keeps the outputs of the 2-D projection and MLP
+products.  An MoE block returns its aux loss
 beside its output, and the stack sums it over the layers.  The audio
 frontend (hubert) takes the place of the token embedding; the vision
 adapter (pixtral) prepends its patch embeddings to the tokens', and the
@@ -31,6 +36,7 @@ context these are identities.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Any, Callable
 
 import torch
@@ -41,14 +47,15 @@ from ..core.kernels import resolve_device
 from ..dist import shard_ops
 from ..dist.context import constrain_batch, gather_weights, reduce_partial
 from . import attention as attn_mod
-from . import frontends, mamba2, moe as moe_mod, rwkv6
+from . import deepseek_moe, frontends, mamba2, mla, moe as moe_mod, rwkv6
 from .config import ModelConfig
 from .layers import (LogicalAxes, ParamInit, cross_entropy, embed_rows,
                      init_embedding, init_lm_head, init_mlp, init_rmsnorm,
                      mlp, rmsnorm)
+from .registry import leaves
 
 MOE_AUX_COEF = 0.01
-BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2")
+BLOCKS = ("attn", "rwkv6", "mamba2", "zamba2", "mla_moe")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -67,11 +74,17 @@ def _device(device: Any) -> torch.device:
 # init
 # ===================================================================== #
 def _init_attn_block(mk: ParamInit, cfg: ModelConfig,
-                     stacked: int | None) -> dict:
+                     stacked: int | None, dense: bool = False) -> dict:
+    """An attention block; ``mla_moe``'s has MLA, and a dense MLP where
+    ``dense`` (its leading layers) or else DeepSeekMoE."""
+    latent = cfg.block == "mla_moe"
     p = {"norm1": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked),
-         "attn": attn_mod.init_attention(mk, cfg, stacked),
+         "attn": (mla.init_mla if latent else attn_mod.init_attention)(
+             mk, cfg, stacked),
          "norm2": init_rmsnorm(mk, cfg.d_model, cfg.param_dtype, stacked)}
-    if cfg.moe is not None:
+    if latent and not dense:
+        p["moe"] = deepseek_moe.init_moe(mk, cfg, stacked)
+    elif cfg.moe is not None and not latent:
         p["moe"] = moe_mod.init_moe(mk, cfg, stacked)
     else:
         p["mlp"] = init_mlp(mk, cfg.d_model, cfg.d_ff, cfg.param_dtype,
@@ -119,6 +132,12 @@ def init(cfg: ModelConfig, seed: int = 0, device: Any = None,
         p["adapter"] = frontends.init_vision_adapter(mk, cfg)
     if cfg.block == "attn":
         p["blocks"] = _init_attn_block(mk, cfg, cfg.n_layers)
+    elif cfg.block == "mla_moe":
+        if cfg.first_dense:
+            p["dense_blocks"] = _init_attn_block(mk, cfg, cfg.first_dense,
+                                                 dense=True)
+        p["blocks"] = _init_attn_block(mk, cfg,
+                                       cfg.n_layers - cfg.first_dense)
     elif cfg.block == "rwkv6":
         p["blocks"] = _init_rwkv_block(mk, cfg, cfg.n_layers)
     elif cfg.block == "mamba2":
@@ -191,27 +210,91 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
         fn, *args, use_reentrant=False, context_fn=context_fn, **kw)
 
 
+def _like(tree: dict, values) -> dict:
+    """``tree``'s nesting with the next of ``values`` at each leaf, in
+    ``registry.leaves``'s order."""
+    return {k: _like(v, values) if isinstance(v, dict) else next(values)
+            for k, v in tree.items()}
+
+
+class _Recompute(torch.autograd.Function):
+    """A block ``fn(p, x) -> (x, aux)`` that keeps only its inputs: the
+    forward builds no graph, and the backward runs the block again under
+    autograd and takes its inputs' gradients from that graph.
+
+    ``remat_policy="nothing"`` for ``mla_moe``.  For each tensor a block
+    saves, ``torch.utils.checkpoint`` (non-reentrant) keeps a holder, its
+    dict, a weak reference and a size alive from the forward to the
+    backward, all tracked by the interpreter's collector.  Over MLA's and
+    DeepSeekMoE's many small operations that is ~6,400 objects promoted
+    into the collector's oldest generation a step (27 layers), so a full
+    collection of the whole heap, longer than the card's queue of
+    launches lasts, comes every few steps.  This keeps one object a
+    block."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *weights):
+        ctx.fn = fn
+        ctx.save_for_backward(x, *weights)
+        return fn(x, weights)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_(t.requires_grad)
+               for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.fn(ins[0], ins[1:])
+        used = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        wrt = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in used], wrt,
+                                       [g for _, g in used],
+                                       allow_unused=True))
+        return (None, *(next(got) if t.requires_grad else None
+                        for t in ins))
+
+
+def _recompute(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn(p, x, **kw)`` run through ``_Recompute`` where ``cfg.remat``
+    and autograd records, with ``remat_policy="nothing"``; else
+    ``_remat``'s."""
+    if not (cfg.remat and torch.is_grad_enabled()) or \
+            cfg.remat_policy != "nothing":
+        return _remat(fn, cfg)
+
+    def run(p: dict, x: torch.Tensor, **kw):
+        nest = _like(p, itertools.repeat(None))
+        return _Recompute.apply(
+            lambda y, ws: fn(_like(nest, iter(ws)), x=y, **kw), x,
+            *leaves(p))
+    return run
+
+
 # ===================================================================== #
 # forward
 # ===================================================================== #
-def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor
+def _ffn(p: dict, cfg: ModelConfig, h: torch.Tensor, layer: int = 0
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The block's MLP or MoE on the normed input -> (y, aux loss)."""
+    """The block's MLP or MoE on the normed input -> (y, aux loss);
+    ``layer`` keys an MoE layer's counters."""
     if "moe" in p:
+        if cfg.block == "mla_moe":
+            return deepseek_moe.moe_ffn(p["moe"], cfg, h, layer)
         return moe_mod.moe_ffn(p["moe"], cfg, h)
     return mlp(p["mlp"], h, cfg.act), torch.zeros((), device=h.device)
 
 
 def _attn_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, layer: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     x = constrain_batch(x)          # re-assert DP sharding at block entry
     p = gather_weights(p)
+    attention = mla.attention if cfg.block == "mla_moe" else \
+        attn_mod.attention
     with spans.span("model.attention"):
-        x = x + reduce_partial(attn_mod.attention(
+        x = x + reduce_partial(attention(
             p["attn"], cfg, rmsnorm(x, p["norm1"], cfg.norm_eps), positions))
     with spans.span("model.mlp"):
-        y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps))
+        y, aux = _ffn(p, cfg, rmsnorm(x, p["norm2"], cfg.norm_eps), layer)
         x = x + reduce_partial(y)
     return x, aux
 
@@ -245,6 +328,15 @@ def _stack(cfg: ModelConfig, params: dict, x: torch.Tensor,
     if cfg.block == "attn":
         for p in unstack(params["blocks"], cfg.n_layers):
             x, a = attn_block(p, x=x)
+            aux = aux + a
+    elif cfg.block == "mla_moe":
+        layers = (unstack(params["dense_blocks"], cfg.first_dense)
+                  if cfg.first_dense else []) + unstack(
+            params["blocks"], cfg.n_layers - cfg.first_dense)
+        block = _recompute(functools.partial(
+            _attn_block, cfg=cfg, positions=positions), cfg)
+        for i, p in enumerate(layers):
+            x, a = block(p, x=x, layer=i)
             aux = aux + a
     elif cfg.block in ("rwkv6", "mamba2"):
         fn = (_remat(functools.partial(_rwkv_block, cfg=cfg), cfg)
@@ -311,15 +403,21 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict
     over ``batch["labels"]``, weighted by ``batch["loss_mask"]`` when
     given (audio: by ``batch["frame_mask"]``, the masked frames; vision:
     over the text positions only, after the image prefix); ``moe_aux``
-    is ``forward``'s, added at ``MOE_AUX_COEF``."""
+    is ``forward``'s, added at ``aux_coef(cfg)``."""
     logits, aux = forward(params, cfg, batch)
     if cfg.frontend == "vision":
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     mask = batch.get("frame_mask" if cfg.frontend == "audio"
                      else "loss_mask")
     ce = cross_entropy(logits, batch["labels"], mask)
-    loss = ce + MOE_AUX_COEF * aux
+    loss = ce + aux_coef(cfg) * aux
     return loss, {"ce": ce, "moe_aux": aux}
+
+
+def aux_coef(cfg: ModelConfig) -> float:
+    """The MoE aux loss's weight in the loss: the config's (DeepSeekMoE's
+    ``aux_alpha``), else ``MOE_AUX_COEF``."""
+    return getattr(cfg.moe, "aux_alpha", MOE_AUX_COEF)
 
 
 # ===================================================================== #
@@ -340,9 +438,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return _init_cache(cfg, batch, max_len, LogicalAxes())
 
 
+def _no_latent_cache(cfg: ModelConfig) -> None:
+    if cfg.block == "mla_moe":
+        raise NotImplementedError(
+            f"{cfg.name}: no decode for latent attention yet (its cache "
+            f"would hold the {cfg.mla.kv_lora_rank}-wide latent and the "
+            f"shared rotary key); training and prefill run")
+
+
 def _init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 mk: ParamInit) -> dict:
     check_ported(cfg)
+    _no_latent_cache(cfg)
     if cfg.block == "attn":
         return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len, mk,
                                              stacked=cfg.n_layers)}
@@ -409,6 +516,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
     check_ported(cfg)
+    _no_latent_cache(cfg)
     x = embed_rows(params["embed"], tokens).to(cfg.dtype)
     cache_len = int(cache_len)
     if cfg.block == "attn":

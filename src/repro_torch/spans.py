@@ -31,7 +31,18 @@ The spans (name: attrs):
   ``serve.prefill`` (``rows``, ``tokens``) in ``serve/engine.py``;
   ``client.ask``, ``client.tell`` in ``core/client.py``;
   ``sampler.suggest`` (``path``: "ask" or "precompute", ``proposals``,
-  ``observations``) in ``core/server.py``.
+  ``observations``) in ``core/server.py``;
+  ``mla.project``, ``mla.core`` in ``models/mla.py``;
+  ``moe.route``, ``moe.dispatch``, ``moe.sync``, ``moe.experts``,
+  ``moe.combine``, ``moe.shared`` in ``models/deepseek_moe.py``;
+  ``trainer.counts`` (each counter's values by its name, e.g.
+  ``moe.pairs``: the held experts' pairs by MoE layer) at the end of
+  ``Trainer.run``.
+
+Counters (``count``) add a device tensor under a name and a key while a
+profiler runs, on the device, in the forward only (not again in a
+block's recompute); ``take_counts`` copies them all to the host once
+and clears them.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import itertools
 import threading
 import time
 
+import torch
 from torch.autograd import profiler as _profiler
 
 
@@ -122,3 +134,34 @@ def recorded() -> list[Span]:
 
 def clear() -> None:
     _done.clear()
+
+
+_counts: dict[str, dict] = {}
+
+
+def counting() -> bool:
+    """Whether ``count`` records now: while a profiler runs and autograd
+    is not running a backward (where a checkpointed block is computed
+    again)."""
+    return (_profiler._is_profiler_enabled
+            and torch._C._current_graph_task_id() == -1)
+
+
+def count(name: str, key, value: torch.Tensor) -> None:
+    """Adds ``value`` to counter ``name`` at ``key``, on its device, where
+    ``counting()``."""
+    if not counting():
+        return
+    group = _counts.setdefault(name, {})
+    group[key] = value.detach() + group[key] if key in group else \
+        value.detach().clone()
+
+
+def take_counts() -> dict[str, list]:
+    """Every counter's values in the order of their keys, as host lists
+    (one copy from the device a counter), by the counter's name, and
+    clears them; empty where nothing was counted."""
+    out = {name: torch.stack([group[k] for k in sorted(group)]).tolist()
+           for name, group in _counts.items()}
+    _counts.clear()
+    return out

@@ -73,8 +73,9 @@ class Trainer:
         ``total_steps``, calling ``report`` every ``report_every`` steps.
         Under a profiler it records ``trainer.run`` over the call and,
         inside it, ``trainer.init``, then a step's ``trainer.batch``,
-        ``trainer.step``, ``trainer.sync`` and ``trainer.report``
-        (``repro_torch.spans``)."""
+        ``trainer.step``, ``trainer.sync`` and ``trainer.report``, and
+        at the end ``trainer.counts`` with the counters the model added
+        to while it ran, where it counted any (``repro_torch.spans``)."""
         t0 = time.time()
         tc = self.tcfg
         with spans.span("trainer.run") as run_attrs:
@@ -122,6 +123,10 @@ class Trainer:
             if self.ckpt is not None:
                 self.ckpt.wait()
             run_attrs["steps"] = executed
+            counts = spans.take_counts()
+            if counts:
+                with spans.span("trainer.counts", **counts):
+                    pass
         return TrainResult(
             final_loss=losses[-1] if losses else float("nan"),
             losses=losses, steps_run=executed, pruned=pruned,
